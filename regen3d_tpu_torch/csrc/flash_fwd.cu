@@ -20,6 +20,12 @@
 // eight rows of a warp fall in distinct banks. Ragged Sq and Sk are masked
 // in the kernel (keys at or past Sk score -1e30, as in the Pallas kernel);
 // the caller pads nothing.
+//
+// Head dims: 64 and 128 (VGGT), 32 and 16 (SAM's mask decoder: token
+// self-attention, and the cross-attentions at half width). The decoder's
+// 11 prompt tokens are a ragged tail inside a single 64-key tile, both as
+// keys (Sq = 4096 image tokens, Sk = 11) and as queries (Sq = 11, the other
+// 53 rows of the q tile are masked out of the stores).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,6 +169,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 16) return (int)launch<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
+  if (d == 32) return (int)launch<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
   if (d == 64) return (int)launch<64>(q, k, v, o, lse, bh, sq, sk, scale, st);
   if (d == 128) return (int)launch<128>(q, k, v, o, lse, bh, sq, sk, scale, st);
   return (int)cudaErrorInvalidValue;

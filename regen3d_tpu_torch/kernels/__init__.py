@@ -25,12 +25,12 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "silhouette")
+SOURCES = ("flash_fwd", "flash_gb_fwd", "silhouette")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "silhouette_fwd": 0,
-                            "silhouette_bwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_gb_fwd": 0,
+                            "silhouette_fwd": 0, "silhouette_bwd": 0}
 BUILD_LOG: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -43,6 +43,12 @@ _SIGNATURES = {
     "flash_fwd": {
         # q, k, v, o, lse, bh, sq, sk, d, scale, stream
         "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_gb_fwd": {
+        # q, k, v, bias_h, bias_w, o, lse, bh, sq, sk, kh, kw, d, scale,
+        # stream
+        "flash_gb_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _P],
     },
     "silhouette": {
         # nvalid, coeffs, valid, tile_uv, acc, n_blocks, n_tiles, k,

@@ -1,11 +1,18 @@
-"""Carry the flax parameter tree of ``regen3d_tpu.models.vggt.VGGT`` into the
-port's :class:`~regen3d_tpu_torch.models.vggt.VGGT` state dict.
+"""Carry a flax parameter tree of the JAX package's models into the port's
+state dicts: ``regen3d_tpu.models.vggt.VGGT`` → :class:`~regen3d_tpu_torch.
+models.vggt.VGGT` and ``regen3d_tpu.models.sam.SAM`` →
+:class:`~regen3d_tpu_torch.models.sam.SAM`.
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
 
 * ``Dense.kernel (in, out)`` → ``Linear.weight (out, in)``;
 * ``Conv.kernel (H, W, I, O)`` → ``Conv2d.weight (O, I, H, W)``;
+* ``ConvTranspose.kernel (H, W, I, O)`` → ``ConvTranspose2d.weight
+  (I, O, H, W)`` with the taps mirrored: flax does not flip the kernel,
+  torch does (see ``layers.ConvTranspose``). Which 4-D kernels are
+  transposed convolutions is named per model, since the shapes cannot tell
+  (where I = O a Conv rule would load mirrored taps in silence);
 * ``LayerNorm.scale`` → ``weight``; every other leaf keeps its name.
 
 Takes numpy arrays (``jax.device_get`` of the tree) and imports no JAX.
@@ -13,10 +20,13 @@ Takes numpy arrays (``jax.device_get`` of the tree) and imports no JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, FrozenSet, Mapping
 
 import numpy as np
 import torch
+
+# module names of the transposed convolutions, per model
+SAM_CONV_TRANSPOSE = frozenset({"up1", "up2"})
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -29,10 +39,13 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def vggt_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax VGGT params (with or without the top ``params`` level) → state
-    dict for ``VGGT.load_state_dict(..., strict=True)``. Raises on a leaf it
-    cannot place."""
+def state_from_jax(params: Mapping,
+                   conv_transpose: FrozenSet[str] = frozenset()
+                   ) -> Dict[str, torch.Tensor]:
+    """flax params (with or without the top ``params`` level) → state dict
+    for ``load_state_dict(..., strict=True)``. A 4-D kernel whose module is
+    named in ``conv_transpose`` takes the ConvTranspose rule. Raises on a
+    leaf it cannot place."""
     if set(params) == {"params"}:
         params = params["params"]
     state = {}
@@ -40,6 +53,8 @@ def vggt_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         *mods, leaf = path
         if leaf == "kernel" and arr.ndim == 2:
             leaf, arr = "weight", arr.T
+        elif leaf == "kernel" and arr.ndim == 4 and mods[-1] in conv_transpose:
+            leaf, arr = "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         elif leaf == "kernel" and arr.ndim == 4:
             leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
         elif leaf == "kernel":
@@ -53,7 +68,23 @@ def vggt_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def vggt_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of a flax VGGT tree."""
+    return state_from_jax(params)
+
+
+def sam_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of a flax SAM tree (``up1``/``up2`` are transposed
+    convolutions)."""
+    return state_from_jax(params, SAM_CONV_TRANSPOSE)
+
+
 def load_vggt_from_jax(model: torch.nn.Module, params: Mapping) -> None:
     """Load a flax tree into ``model``; every leaf must be used exactly once
     and every model parameter must be set (``strict=True``)."""
     model.load_state_dict(vggt_state_from_jax(params), strict=True)
+
+
+def load_sam_from_jax(model: torch.nn.Module, params: Mapping) -> None:
+    """As :func:`load_vggt_from_jax`, for SAM."""
+    model.load_state_dict(sam_state_from_jax(params), strict=True)

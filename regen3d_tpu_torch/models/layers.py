@@ -8,7 +8,9 @@ The modules follow flax's numerics, which the JAX package runs:
 * ``LayerNorm`` uses eps 1e-6 (torch's default is 1e-5), computes in f32 with
   f32 params and returns ``dtype``;
 * GELU is the tanh approximation (flax ``nn.gelu``);
-* ``Conv`` pads ``SAME`` and keeps NHWC at its interface.
+* ``Conv`` pads ``SAME`` and keeps NHWC at its interface;
+* ``ConvTranspose`` is flax's ``nn.ConvTranspose`` at kernel 2, stride 2;
+* every module is built on the card unless the caller passes ``device``.
 
 Submodule names follow the flax tree, so ``models/from_jax.py`` maps
 parameters by name.
@@ -16,7 +18,8 @@ parameters by name.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,7 +34,7 @@ class Dense(nn.Linear):
     """flax ``nn.Dense``: the input is cast to the weights' dtype."""
 
     def __init__(self, d_in, d_out, bias=True, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__(d_in, d_out, bias=bias, dtype=dtype, device=device)
 
     def forward(self, x):
@@ -42,7 +45,7 @@ class Conv(nn.Conv2d):
     """flax ``nn.Conv`` with ``SAME`` padding on NHWC tensors."""
 
     def __init__(self, c_in, c_out, kernel, stride=1, bias=True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device="cuda"):
         if stride == 1 and kernel % 2 == 0:
             raise ValueError("SAME padding of an even kernel is asymmetric")
         pad = (kernel - 1) // 2 if stride == 1 else 0
@@ -57,10 +60,26 @@ class Conv(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose`` at kernel 2, stride 2 (``SAME``) on NHWC:
+    each input pixel becomes a 2×2 output block. flax does not flip the
+    kernel (``transpose_kernel=False``), so its tap (a, b) lands on output
+    offset (1 − a, 1 − b); torch's tap (a, b) lands on (a, b). The weight
+    holds torch's layout (in, out, 2, 2); ``models/from_jax.py`` mirrors the
+    taps when it loads a flax kernel."""
+
+    def __init__(self, c_in, c_out, dtype=torch.float32, device="cuda"):
+        super().__init__(c_in, c_out, 2, stride=2, dtype=dtype, device=device)
+
+    def forward(self, x):                       # (B, H, W, C)
+        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1)
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: f32 statistics and params, output in ``dtype``."""
 
-    def __init__(self, dim, affine=True, dtype=torch.float32, device=None):
+    def __init__(self, dim, affine=True, dtype=torch.float32, device="cuda"):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
@@ -76,13 +95,24 @@ class LayerNorm(nn.Module):
                             LN_EPS).to(self.dtype)
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` in place: a normal truncated at ±2σ, scaled
+    so the variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    tmp = torch.empty(weight.shape, device=weight.device)
+    nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+    weight.copy_(tmp)
+
+
 def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
 class Mlp(nn.Module):
     def __init__(self, d_in, hidden, out: Optional[int] = None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         self.fc1 = Dense(d_in, hidden, dtype=dtype, device=device)
         self.fc2 = Dense(hidden, out or d_in, dtype=dtype, device=device)
@@ -94,7 +124,7 @@ class Mlp(nn.Module):
 class FusedAttention(nn.Module):
     """Self-attention with one fused qkv projection (torch-ViT layout)."""
 
-    def __init__(self, dim, num_heads, dtype=torch.float32, device=None):
+    def __init__(self, dim, num_heads, dtype=torch.float32, device="cuda"):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
@@ -113,7 +143,7 @@ class ViTBlock(nn.Module):
     """Pre-norm ViT block, optional LayerScale (norm1/attn/ls1/norm2/mlp/ls2)."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, layer_scale=False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device="cuda"):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = FusedAttention(dim, num_heads, dtype=dtype, device=device)
@@ -140,7 +170,7 @@ class PatchEmbed(nn.Module):
     """Image (B, H, W, C) → patch tokens (B, h·w, width) by a strided conv."""
 
     def __init__(self, patch, width, in_ch=3, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         self.proj = Conv(in_ch, width, patch, stride=patch, dtype=dtype,
                          device=device)
@@ -166,3 +196,15 @@ def posemb_sincos_2d(h: int, w: int, dim: int, device=None) -> torch.Tensor:
     if out.shape[-1] < dim:
         out = F.pad(out, (0, dim - out.shape[-1]))
     return out
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "bilinear")`` on NHWC: half-pixel centres,
+    and a triangle filter widened by the scale (antialiasing) when it
+    downsamples. Computed in f32, returned in x.dtype."""
+    ih, iw = x.shape[1:3]
+    oh, ow = out_hw
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(oh, ow),
+                      mode="bilinear", align_corners=False,
+                      antialias=oh < ih or ow < iw)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

@@ -11,7 +11,6 @@ Every attention runs on ``ops/attention.flash_attention``.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -25,7 +24,9 @@ from regen3d_tpu_torch.models.layers import (
     Mlp,
     PatchEmbed,
     ViTBlock,
+    lecun_normal_,
     posemb_sincos_2d,
+    resize_bilinear,
 )
 
 
@@ -66,7 +67,7 @@ class DinoBackbone(nn.Module):
     """Patch conv, cls token, pos embed, LayerScale blocks, final norm;
     returns the patch tokens (B, h·w, width) and the grid (h, w)."""
 
-    def __init__(self, c: VGGTConfig, device=None):
+    def __init__(self, c: VGGTConfig, device="cuda"):
         super().__init__()
         self.cfg = c
         self.patch_embed = PatchEmbed(c.patch, c.width, dtype=c.dtype,
@@ -97,7 +98,7 @@ class Aggregator(nn.Module):
     """Alternating frame/global attention; returns per-layer taps
     [frame_out ‖ global_out] (B, F, N, 2·width) and the patch grid."""
 
-    def __init__(self, c: VGGTConfig, device=None):
+    def __init__(self, c: VGGTConfig, device="cuda"):
         super().__init__()
         if c.token_merge_ratio > 0:
             raise NotImplementedError(
@@ -141,7 +142,7 @@ class CameraHead(nn.Module):
     """Camera tokens (B, F, 2·width) → pose encoding [t, quat xyzw, fov_h,
     fov_w] (B, F, 9) by iterative AdaLN-modulated refinement."""
 
-    def __init__(self, c: VGGTConfig, device=None):
+    def __init__(self, c: VGGTConfig, device="cuda"):
         super().__init__()
         self.cfg = c
         d = 2 * c.width
@@ -195,22 +196,10 @@ def pose_encoding_to_camera(enc: torch.Tensor, image_hw: Tuple[int, int]
             "cy": torch.full_like(fy, h / 2.0)}
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """``jax.image.resize(x, ..., "bilinear")`` on NHWC: half-pixel centres,
-    and a triangle filter widened by the scale (antialiasing) when it
-    downsamples. Computed in f32, returned in x.dtype."""
-    ih, iw = x.shape[1:3]
-    oh, ow = out_hw
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(oh, ow),
-                      mode="bilinear", align_corners=False,
-                      antialias=oh < ih or ow < iw)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
-
-
 class ResidualConvUnit(nn.Module):
     """DPT fusion unit: x + conv2(relu(conv1(relu(x))))."""
 
-    def __init__(self, ch, dtype, device=None):
+    def __init__(self, ch, dtype, device="cuda"):
         super().__init__()
         self.conv1 = Conv(ch, ch, 3, dtype=dtype, device=device)
         self.conv2 = Conv(ch, ch, 3, dtype=dtype, device=device)
@@ -225,7 +214,7 @@ class DPTHead(nn.Module):
 
     SCALES = (4.0, 2.0, 1.0, 0.5)
 
-    def __init__(self, c: VGGTConfig, out_channels: int = 1, device=None):
+    def __init__(self, c: VGGTConfig, out_channels: int = 1, device="cuda"):
         super().__init__()
         self.cfg = c
         self.out_channels = out_channels
@@ -271,7 +260,7 @@ class DPTHead(nn.Module):
 class VGGT(nn.Module):
     """images (B, F, H, W, 3) → {pose_enc, depth, depth_conf}."""
 
-    def __init__(self, c: VGGTConfig, device=None):
+    def __init__(self, c: VGGTConfig, device="cuda"):
         super().__init__()
         self.cfg = c
         self.aggregator = Aggregator(c, device=device)
@@ -304,12 +293,7 @@ def init_flax_style_(model: nn.Module, generator: torch.Generator) -> None:
                 if name.endswith("poseLN_modulation"):
                     mod.weight.zero_()
                 else:
-                    fan_in = mod.weight[0].numel()
-                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                    tmp = torch.empty(mod.weight.shape, device=mod.weight.device)
-                    nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
-                                          generator=generator)
-                    mod.weight.copy_(tmp)
+                    lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, LayerNorm) and mod.weight is not None:

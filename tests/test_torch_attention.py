@@ -1,6 +1,8 @@
 """Port flash attention (plain version of the CUDA kernel) vs the JAX Pallas
-kernel in interpret mode: ragged Sq/Sk including S = 2, head dims 64 and 128,
-f32, atol 1e-5. Also the kernel wrapper's refusals on the CPU side."""
+kernel in interpret mode: ragged Sq/Sk including S = 2, head dims 64 and 128
+(VGGT) and 32 and 16 (SAM's mask decoder: 11 prompt tokens against image
+tokens and back), f32, atol 1e-5. Also the kernel wrapper's refusals on the
+CPU side."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,8 @@ from test_torch_package import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("sq,sk,d", [(37, 37, 64), (40, 37, 128), (2, 2, 128),
-                                     (5, 2, 64)])
+                                     (5, 2, 64), (11, 11, 32), (11, 70, 16),
+                                     (70, 11, 16)])
 def test_flash_attention_matches_pallas(sq, sk, d):
     rng = np.random.default_rng(sq * 100 + sk + d)
     q = rng.normal(size=(2, 3, sq, d)).astype(np.float32)

@@ -1,6 +1,7 @@
 """The port stands apart from JAX: importing it and every slice module pulls
 in neither ``jax`` nor ``regen3d_tpu``; the weight bridge uses every flax
-leaf of the tiny VGGT exactly once and loads with strict=True."""
+leaf of the tiny VGGT exactly once and loads with strict=True; models built
+without a device go to the card."""
 
 import dataclasses
 import subprocess
@@ -34,7 +35,9 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.ops.point_mesh", "regen3d_tpu_torch.ops.attention",
     "regen3d_tpu_torch.models.layers", "regen3d_tpu_torch.models.vggt",
     "regen3d_tpu_torch.models.from_jax", "regen3d_tpu_torch.pipeline.pose_fit",
-    "regen3d_tpu_torch.pipeline.scene_step",
+    "regen3d_tpu_torch.pipeline.scene_step", "regen3d_tpu_torch.models.sam",
+    "regen3d_tpu_torch.pipeline.detection",
+    "regen3d_tpu_torch.pipeline.phase1_segmentation",
 ]
 
 
@@ -72,7 +75,8 @@ def test_weight_bridge_uses_every_leaf_once():
         jax.random.PRNGKey(0), jnp.zeros((1, 2, 28, 28, 3))))
     n_leaves = len(jax.tree_util.tree_leaves(params))
     state = vggt_state_from_jax(params)
-    model = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32))
+    model = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32),
+                 device="cpu")
     assert len(state) == n_leaves == len(model.state_dict())
     load_vggt_from_jax(model, params)
     k = np.asarray(params["params"]["aggregator"]["frame_block0"]["attn"]["qkv"]["kernel"])
@@ -82,3 +86,19 @@ def test_weight_bridge_uses_every_leaf_once():
     params["params"]["camera_head"]["stray"] = np.zeros(3, np.float32)
     with pytest.raises(RuntimeError, match="stray"):
         load_vggt_from_jax(model, params)
+
+
+def test_models_are_built_on_the_card_by_default():
+    """No device means the card: with CUDA the parameters land there,
+    without it construction fails (nothing falls back to the CPU)."""
+    from regen3d_tpu_torch.models.sam import SAM, SamConfig
+    from regen3d_tpu_torch.models.vggt import VGGT, VGGTConfig
+
+    for build in (lambda: VGGT(VGGTConfig.tiny()),
+                  lambda: SAM(SamConfig.tiny())):
+        if torch.cuda.is_available():
+            assert {p.device.type for p in build().parameters()} == {"cuda"}
+        else:
+            with pytest.raises((AssertionError, RuntimeError),
+                               match="CUDA"):
+                build()

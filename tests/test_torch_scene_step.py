@@ -39,7 +39,8 @@ def setup():
     imgs = np.random.default_rng(0).random((2, s, s, 3)).astype(np.float32)
     jm = JVGGT(jc)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(imgs)[None])
-    tm = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32))
+    tm = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32),
+              device="cpu")
     load_vggt_from_jax(tm, jax.device_get(params))
     masks = np.zeros((2, s, s), bool)
     masks[0, 2:12, 2:12] = True

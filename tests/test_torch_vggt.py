@@ -34,13 +34,13 @@ def test_layernorm_eps_and_affine():
     bias = rng.normal(size=16).astype(np.float32)
     ln = fnn.LayerNorm()
     want = ln.apply({"params": {"scale": scale, "bias": bias}}, jnp.asarray(x))
-    mod = tl.LayerNorm(16)
+    mod = tl.LayerNorm(16, device="cpu")
     mod.weight.data = torch.from_numpy(scale)
     mod.bias.data = torch.from_numpy(bias)
     np.testing.assert_allclose(mod(torch.from_numpy(x)).detach().numpy(),
                                np.asarray(want), rtol=1e-5, atol=1e-5)
     plain = fnn.LayerNorm(use_scale=False, use_bias=False).apply({}, jnp.asarray(x))
-    np.testing.assert_allclose(tl.LayerNorm(16, affine=False)(torch.from_numpy(x)).numpy(),
+    np.testing.assert_allclose(tl.LayerNorm(16, affine=False, device="cpu")(torch.from_numpy(x)).numpy(),
                                np.asarray(plain), rtol=1e-5, atol=1e-5)
 
 
@@ -51,7 +51,7 @@ def test_conv_same_padding(kernel, stride, hw):
     conv = fnn.Conv(6, (kernel, kernel), strides=(stride, stride))
     p = conv.init(jax.random.PRNGKey(0), jnp.asarray(x))
     want = conv.apply(p, jnp.asarray(x))
-    mod = tl.Conv(4, 6, kernel, stride=stride)
+    mod = tl.Conv(4, 6, kernel, stride=stride, device="cpu")
     mod.weight.data = torch.from_numpy(
         np.asarray(p["params"]["kernel"]).transpose(3, 2, 0, 1).copy())
     mod.bias.data = torch.from_numpy(np.array(p["params"]["bias"]))
@@ -85,7 +85,7 @@ def tiny_pair():
     params = jax.tree_util.tree_map_with_path(
         lambda path, x: x + 0.05 if path[-1].key in ("ls1", "ls2") else
         (x + 0.01 if "poseLN_modulation" in str(path) else x), params)
-    tm = tv.VGGT(tc)
+    tm = tv.VGGT(tc, device="cpu")
     load_vggt_from_jax(tm, jax.device_get(params))
     return jm, params, tm, imgs
 
@@ -120,4 +120,4 @@ def test_pose_encoding_to_camera_and_unproject():
 def test_token_merging_is_refused():
     c = dataclasses.replace(tv.VGGTConfig.tiny(), token_merge_ratio=0.5)
     with pytest.raises(NotImplementedError):
-        tv.VGGT(c)
+        tv.VGGT(c, device="cpu")
