@@ -13,6 +13,9 @@ Phases, each reported on one line:
    the plain version's and, where one PyTorch call computes the same
    function, that call's; beside them the least time the card could take
    (bytes over 3.35 TB/s or operations over the peak rate of their type);
+   then the four backward kernels (flash dq and dkv at DiT-base's self and
+   cross shapes and a ragged-query shape, the grid-bias pair at SAM-H's
+   global blocks) with a non-zero upstream gradient, beside SDPA's backward;
 3. scene_step at the full VGGT-1B width and depth (random weights from a
    seed), 2 frames and 8 objects, checked finite and, on a small config,
    against the same step on the CPU's plain versions;
@@ -25,7 +28,19 @@ Phases, each reported on one line:
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
    seed) on a 960×1280 synthetic room with 8 boxes from a fixed detector and
    both decoder passes: one encode per call, every mask finite and
-   non-empty.
+   non-empty;
+6. DiT training: a small DiT's flow-matching step on the card (bf16
+   compute, f32 parameters, kernels) against the CPU (f32, plain versions),
+   loss and three gradients, with the AdaLN-Zero leaves drawn non-zero;
+   then DiTConfig.base() (random weights from a seed) trained for 30 steps
+   of train_step at B = 8 (512 × 64 latents, 257 condition tokens): every
+   loss and gradient finite, every attention's gradient non-zero, 32
+   launches per step of each flash kernel, and the loss on a fixed batch
+   falls; then sample() at base (4 steps, guidance 5, B = 6);
+7. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
+   then SAM-H's at full size (every gradient finite, the global blocks'
+   rel-pos gradients non-zero, each grid-bias backward kernel launched 4
+   times).
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the launches that compare a kernel with its plain version are not
@@ -37,6 +52,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,12 +69,29 @@ FLASH_SHAPES = [(2, 16, 1370, 1370, 64), (2, 16, 1374, 1374, 64),
                 (8, 8, 4096, 11, 16)]
 # SAM-H's global blocks: (B, H, S, D) with a 64 × 64 key grid
 GB_SHAPE, GB_GRID = (1, 16, 4096, 80), (64, 64)
+# (B, H, Sq, Sk, D) of the backward kernels: DiT-base's self- and
+# cross-attention at B = 8 (257 keys is a ragged tail) and a ragged-query
+# shape (1374 = 21·64 + 30) for the dkv kernel's masking
+BWD_SHAPES = [(8, 16, 512, 512, 64), (8, 16, 512, 257, 64),
+              (2, 16, 1374, 1374, 64)]
 KERNELS = {
     "flash_fwd": dict(route="cuda", source="regen3d_tpu_torch/csrc/flash_fwd.cu",
                       replaces="regen3d_tpu/ops/attention.py:46"),
+    "flash_bwd_dq": dict(route="cuda",
+                         source="regen3d_tpu_torch/csrc/flash_bwd.cu",
+                         replaces="regen3d_tpu/ops/attention.py:178"),
+    "flash_bwd_dkv": dict(route="cuda",
+                          source="regen3d_tpu_torch/csrc/flash_bwd.cu",
+                          replaces="regen3d_tpu/ops/attention.py:203"),
     "flash_gb_fwd": dict(route="cuda",
                          source="regen3d_tpu_torch/csrc/flash_gb_fwd.cu",
                          replaces="regen3d_tpu/ops/attention.py:355"),
+    "flash_gb_bwd_dq": dict(route="cuda",
+                            source="regen3d_tpu_torch/csrc/flash_gb_bwd.cu",
+                            replaces="regen3d_tpu/ops/attention.py:396"),
+    "flash_gb_bwd_dkv": dict(route="cuda",
+                             source="regen3d_tpu_torch/csrc/flash_gb_bwd.cu",
+                             replaces="regen3d_tpu/ops/attention.py:437"),
     "silhouette_fwd": dict(route="cuda",
                            source="regen3d_tpu_torch/csrc/silhouette.cu",
                            replaces="regen3d_tpu/ops/pallas_rasterize.py:64"),
@@ -66,6 +99,11 @@ KERNELS = {
                            source="regen3d_tpu_torch/csrc/silhouette.cu",
                            replaces="regen3d_tpu/ops/pallas_rasterize.py:85"),
 }
+# the launch counts of each main-path run, summed into the kernels line
+MAIN_PATHS = ("scene_launches", "fit_launches", "sam_launches",
+              "dit_launches", "dit_sample_launches", "sam_grad_launches")
+# the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -94,12 +132,48 @@ def attention_work(b, h, sq, sk, d, bias_cols=0):
     return ops, nbytes
 
 
+def attention_bwd_work(b, h, sq, sk, d, bias_cols=0):
+    """(operations, bytes) of the two backward kernels, by kernel: dq does
+    6·Sq·Sk·D operations per (batch·head) (s, dp and ds·k), dkv 8·Sq·Sk·D
+    (s, dp, dsᵀ·q and pᵀ·g). Each reads q, k, v and g in bf16 and lse and
+    delta in f32 once, and the bias factors (f32) for the grid-bias pair;
+    dq writes dq (and the f32 bias gradients), dkv writes dk and dv."""
+    bh = b * h
+    reads = 2 * bh * (2 * sq + 2 * sk) * d + 8 * bh * sq \
+        + 4 * bh * sq * bias_cols
+    return {"dq": (6 * bh * sq * sk * d,
+                   reads + 2 * bh * sq * d + 4 * bh * sq * bias_cols),
+            "dkv": (8 * bh * sq * sk * d, reads + 4 * bh * sk * d)}
+
+
+def bwd_error(got, ref, name, bf16_out=True):
+    """(max abs error, bound) of a gradient against its plain version; raises
+    over the bound. The bound is 2⁻⁸·|ref| for one bf16 rounding of a bf16
+    output, plus f32 summation-order noise over up to a few thousand terms
+    in another order and the exp's last bits, 1e-3 of the largest |ref|
+    (2e-4 for the f32 bias gradients, which are not rounded)."""
+    ref_max = float(ref.abs().max())
+    err = (got.float() - ref).abs()
+    tol = (2.0 ** -8 * ref.abs() + 1e-3 * ref_max) if bf16_out \
+        else 2e-4 * ref_max
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{name}: error {float(err.max()):.3e} over its "
+                             f"bound (max |ref| {ref_max:.3e})")
+    return float(err.max()), ref_max
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 def cuda_ms(fn, reps=10, warmup=2):
-    """Median ms of ``fn()`` over ``reps`` runs timed by CUDA events."""
+    """Median device ms of ``fn()`` over ``reps`` runs timed by CUDA events.
+    Before each run the stream spins for ~10 ms (``torch.cuda._sleep``), so
+    the host queues fn's launches before the first event fires and the time
+    is the device's, without the host's gaps between launches: without
+    the spin, SDPA's backward through autograd (sub-millisecond, several
+    launches) read 0.7 to 2.3 ms over three shapes on three H100 machines
+    while the hand-written kernels moved by 3%."""
     import torch
 
     for _ in range(warmup):
@@ -108,6 +182,7 @@ def cuda_ms(fn, reps=10, warmup=2):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -311,6 +386,151 @@ def phase_kernels(results):
                                      bound_ms=b_b[0], bound_by=b_b[1],
                                      library_ms=None,
                                      tolerance="elementwise 2e-5 * sum|terms|")
+
+
+def phase_bwd_kernels(results):
+    """The four backward kernels against their plain versions, with a
+    non-zero upstream gradient g, at the DiT-base shapes, a ragged-query
+    shape and SAM-H's global blocks (non-zero bias factors); times beside
+    the backward of F.scaled_dot_product_attention, which computes dq, dk
+    and dv together (timed alone after an untimed forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from regen3d_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tol = ("2^-8*|ref| + 1e-3*max|ref| (one bf16 rounding of the output, "
+           "f32 sums in another order)")
+    acc = {n: dict(ms=0.0, plain_ms=0.0, ops=0, nbytes=0, err=0.0)
+           for n in ("dq", "dkv")}
+    lib_ms = 0.0
+
+    def sdpa_bwd_ms(q, k, v, g, mask=None):
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+        return cuda_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), g,
+                                                   retain_graph=True))
+
+    for b, h, sq, skv, d in BWD_SHAPES:
+        shape = (b, h, sq, skv, d)
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, h, skv, d), generator=gen, device="cuda")
+                for _ in range(2))
+        g = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
+        s = d ** -0.5
+        with torch.no_grad():
+            o, lse = att.flash_attention_fwd(q, k, v)
+        delta = (o.float() * g.float()).sum(-1)
+        dq = att.flash_bwd_dq(q, k, v, g, lse, delta, s)
+        dk, dv = att.flash_bwd_dkv(q, k, v, g, lse, delta, s)
+        dq_r = att.flash_bwd_dq_reference(q, k, v, g, lse, delta, s)
+        dk_r, dv_r = att.flash_bwd_dkv_reference(q, k, v, g, lse, delta, s)
+        torch.cuda.synchronize()
+        e_dq = bwd_error(dq, dq_r, f"flash_bwd_dq {shape} dq")
+        e_dk = bwd_error(dk, dk_r, f"flash_bwd_dkv {shape} dk")
+        e_dv = bwd_error(dv, dv_r, f"flash_bwd_dkv {shape} dv")
+        t = dict(
+            dq=cuda_ms(lambda: att.flash_bwd_dq(q, k, v, g, lse, delta, s)),
+            dkv=cuda_ms(lambda: att.flash_bwd_dkv(q, k, v, g, lse, delta, s)),
+            dq_p=cuda_ms(lambda: att.flash_bwd_dq_reference(
+                q, k, v, g, lse, delta, s), reps=5),
+            dkv_p=cuda_ms(lambda: att.flash_bwd_dkv_reference(
+                q, k, v, g, lse, delta, s), reps=5),
+            lib=sdpa_bwd_ms(q, k, v, g))
+        work = attention_bwd_work(*shape)
+        for n, err in (("dq", e_dq[0]), ("dkv", max(e_dk[0], e_dv[0]))):
+            a = acc[n]
+            a["ms"] += t[n]
+            a["plain_ms"] += t[n + "_p"]
+            a["ops"] += work[n][0]
+            a["nbytes"] += work[n][1]
+            a["err"] = max(a["err"], err)
+        lib_ms += t["lib"]
+        b_dq, b_dkv = (bound(*work[n], "bf16") for n in ("dq", "dkv"))
+        log(f"flash_bwd {shape}: dq err {e_dq[0]:.3e} (max |dq| "
+            f"{e_dq[1]:.3e}), dk err {e_dk[0]:.3e} ({e_dk[1]:.3e}), dv err "
+            f"{e_dv[0]:.3e} ({e_dv[1]:.3e}), tol {tol}; dq kernel "
+            f"{t['dq']:.3f} ms (plain {t['dq_p']:.3f}, bound {b_dq[0]:.4f} "
+            f"{b_dq[1]}), dkv kernel {t['dkv']:.3f} ms (plain "
+            f"{t['dkv_p']:.3f}, bound {b_dkv[0]:.4f} {b_dkv[1]}); the two "
+            f"kernels {t['dq'] + t['dkv']:.3f} ms against sdpa backward "
+            f"(dq, dk, dv together) {t['lib']:.3f} ms")
+        del dq_r, dk_r, dv_r
+    for n in ("dq", "dkv"):
+        a = acc[n]
+        t_b, by = bound(a["ops"], a["nbytes"], "bf16")
+        results[f"flash_bwd_{n}"] = dict(
+            max_abs_err=a["err"], tolerance=tol, ms=a["ms"],
+            plain_ms=a["plain_ms"], bound_ms=t_b, bound_by=by,
+            library_ms=lib_ms,
+            library="F.scaled_dot_product_attention backward: dq, dk and dv "
+                    "together, the same time for both kernels of the pair",
+            timed=f"sum over the {len(BWD_SHAPES)} shapes (B, H, Sq, Sk, D) "
+                  f"{BWD_SHAPES}")
+
+    # grid-bias pair at SAM-H's global blocks, bias factors of the size
+    # SAM's rel-pos tables give
+    b, h, sq, d = GB_SHAPE
+    kh, kw = GB_GRID
+    q, k, v, g = (torch.randn(GB_SHAPE, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    bias_h = 0.5 * torch.randn((b, h, sq, kh), generator=gen, device="cuda")
+    bias_w = 0.5 * torch.randn((b, h, sq, kw), generator=gen, device="cuda")
+    s = d ** -0.5
+    with torch.no_grad():
+        o, lse = att.flash_attention_grid_bias_fwd(q, k, v, bias_h, bias_w,
+                                                   kw)
+    delta = (o.float() * g.float()).sum(-1)
+    args = (q, k, v, bias_h, bias_w, kw, g, lse, delta, s)
+    dq, dbh, dbw = att.grid_bias_bwd_dq(*args)
+    dk, dv = att.grid_bias_bwd_dkv(*args)
+    ref_dq = att.grid_bias_bwd_dq_reference(*args)
+    ref_dkv = att.grid_bias_bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    errs = {
+        "dq": bwd_error(dq, ref_dq[0], "flash_gb_bwd_dq dq"),
+        "dbias_h": bwd_error(dbh, ref_dq[1], "flash_gb_bwd_dq dbias_h",
+                             bf16_out=False),
+        "dbias_w": bwd_error(dbw, ref_dq[2], "flash_gb_bwd_dq dbias_w",
+                             bf16_out=False),
+        "dk": bwd_error(dk, ref_dkv[0], "flash_gb_bwd_dkv dk"),
+        "dv": bwd_error(dv, ref_dkv[1], "flash_gb_bwd_dkv dv")}
+    del ref_dq, ref_dkv
+    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
+        b, h, sq, sq).to(torch.bfloat16)
+    t = dict(dq=cuda_ms(lambda: att.grid_bias_bwd_dq(*args)),
+             dkv=cuda_ms(lambda: att.grid_bias_bwd_dkv(*args)),
+             dq_p=cuda_ms(lambda: att.grid_bias_bwd_dq_reference(*args),
+                          reps=3),
+             dkv_p=cuda_ms(lambda: att.grid_bias_bwd_dkv_reference(*args),
+                           reps=3),
+             lib=sdpa_bwd_ms(q, k, v, g, mask))
+    del mask
+    work = attention_bwd_work(b, h, sq, sq, d, kh + kw)
+    b_dq, b_dkv = (bound(*work[n], "bf16") for n in ("dq", "dkv"))
+    log(f"flash_gb_bwd {GB_SHAPE} grid {GB_GRID}: errors (max abs, max "
+        f"|ref|) { {n: (f'{e[0]:.3e}', f'{e[1]:.3e}') for n, e in errs.items()} }"
+        f", tol {tol}, dbias 2e-4*max|ref| (f32 out); dq kernel "
+        f"{t['dq']:.3f} ms (plain {t['dq_p']:.3f}, bound {b_dq[0]:.4f} "
+        f"{b_dq[1]}), dkv kernel {t['dkv']:.3f} ms (plain {t['dkv_p']:.3f}, "
+        f"bound {b_dkv[0]:.4f} {b_dkv[1]}); the two kernels "
+        f"{t['dq'] + t['dkv']:.3f} ms against sdpa backward with the bf16 "
+        f"bias built beforehand (untimed; dq, dk, dv together, no bias "
+        f"gradient) {t['lib']:.3f} ms")
+    lib = ("F.scaled_dot_product_attention backward with the (S, S) bf16 "
+           "bias built beforehand: dq, dk and dv together, no bias gradient; "
+           "the same time for both kernels of the pair")
+    results["flash_gb_bwd_dq"] = dict(
+        max_abs_err=max(errs[n][0] for n in ("dq", "dbias_h", "dbias_w")),
+        tolerance=tol + "; dbias: 2e-4*max|ref| (f32 out)", ms=t["dq"],
+        plain_ms=t["dq_p"], bound_ms=b_dq[0], bound_by=b_dq[1],
+        library_ms=t["lib"], library=lib)
+    results["flash_gb_bwd_dkv"] = dict(
+        max_abs_err=max(errs["dk"][0], errs["dv"][0]), tolerance=tol,
+        ms=t["dkv"], plain_ms=t["dkv_p"], bound_ms=b_dkv[0],
+        bound_by=b_dkv[1], library_ms=t["lib"], library=lib)
 
 
 def _torus(n_major=32, n_minor=32, R=0.25, r=0.08):
@@ -786,6 +1006,262 @@ def phase_sam(results, runs=3):
     results["phase1_sec"] = med(ts)
 
 
+def _dit_draws(b, shape, gen, dev):
+    """(t, ε, drop) for flow_matching_loss from a CPU generator, on ``dev``:
+    the same draws on both sides of a comparison."""
+    import torch
+
+    t = torch.rand(b, generator=gen)
+    eps = torch.randn(shape, generator=gen)
+    drop = torch.rand(b, generator=gen) < 0.1
+    drop[0] = True                       # the condition masking is exercised
+    return t.to(dev), eps.to(dev), drop.to(dev)
+
+
+def phase_dit(results, steps=30, batch=8, cond_len=257):
+    """The flow-matching DiT training step: a small config on the card
+    (bf16 compute, f32 parameters, kernels) against the same step on the CPU
+    (f32, plain versions), then DiTConfig.base() trained for ``steps`` steps
+    on B = 8 latent sets, then sample() at base."""
+    import dataclasses
+
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models.dit import (
+        DiTConfig,
+        ShapeDiT,
+        draw_zero_init_leaves_,
+        flow_matching_loss,
+        init_flax_style_,
+        sample,
+    )
+    from regen3d_tpu_torch.parallel.train import init_state, train_step
+
+    # agreement on a small config. The AdaLN-Zero leaves (adaLN, adaLN_out,
+    # x_out) are drawn non-zero: at flax's init the gradient stops at x_out
+    # and every attention's upstream gradient is exactly 0.
+    small = DiTConfig(latent_tokens=64, latent_dim=16, width=256, depth=2,
+                      num_heads=4, cond_dim=128)
+    cpu_model = ShapeDiT(dataclasses.replace(small, dtype=torch.float32),
+                         device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    init_flax_style_(cpu_model, gen)
+    draw_zero_init_leaves_(cpu_model, gen)
+    gpu_model = ShapeDiT(small)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    x0 = torch.randn(4, small.latent_tokens, small.latent_dim, generator=gen)
+    cond = torch.randn(4, 33, small.cond_dim, generator=gen)
+    draws = _dit_draws(4, x0.shape, gen, "cpu")
+    watched = ("block0.attn.q.weight", "block0.cross.k.weight",
+               "block0.attn.q_norm.weight")
+    out = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"),
+                             ("gpu", gpu_model, "cuda")):
+        loss = flow_matching_loss(model, x0.to(dev), cond.to(dev), None,
+                                  draws=tuple(d.to(dev) for d in draws))
+        loss.backward()
+        params = dict(model.named_parameters())
+        out[name] = (float(loss.detach()), {w: params[w].grad.float().cpu()
+                                   for w in watched})
+    errs = {"loss": abs(out["gpu"][0] - out["cpu"][0]) / abs(out["cpu"][0])}
+    for w in watched:
+        ref = out["cpu"][1][w]
+        errs[w] = float((out["gpu"][1][w] - ref).abs().max() / ref.abs().max())
+    log(f"small DiT step, card bf16 kernels vs CPU f32 plain: loss "
+        f"{out['gpu'][0]:.5f} vs {out['cpu'][0]:.5f}; max error / max |ref| "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol 5e-2: bf16 "
+        f"activations through 2 blocks)")
+    if not max(errs.values()) < 5e-2:
+        raise AssertionError("small DiT step on the card disagrees with the "
+                             "CPU")
+    del cpu_model, gpu_model
+
+    cfg = DiTConfig.base()
+    t0 = time.perf_counter()
+    model = ShapeDiT(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt = init_state(model, gen)
+    draw_zero_init_leaves_(model, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"DiT-base config: {n_params / 1e9:.3f} B params (f32), built and "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    x0 = torch.randn((batch, cfg.latent_tokens, cfg.latent_dim),
+                     generator=gen, device="cuda")
+    cond = torch.randn((batch, cond_len, cfg.cond_dim), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    fixed = _dit_draws(batch, x0.shape, torch.Generator().manual_seed(7),
+                       "cuda")
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(flow_matching_loss(model, x0, cond, None,
+                                            draws=fixed))
+
+    loss0 = fixed_loss()
+    attn = [f"block{i}.{a}.{p}.weight" for i in range(cfg.depth)
+            for a in ("attn", "cross") for p in ("q", "k", "v", "proj")]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    ts, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, x0, cond, gen)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+        losses.append(loss)
+        params = dict(model.named_parameters())
+        finite = torch.stack([p.grad.isfinite().all()
+                              for p in params.values()]).all()
+        nonzero = torch.stack([params[n].grad.abs().amax() > 0
+                               for n in attn]).all()
+        if not bool(finite & nonzero):
+            raise AssertionError("DiT-base step: a gradient is non-finite or "
+                                 "an attention's gradient is zero")
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    loss1 = fixed_loss()
+    per_step = {n: counts[n] / steps for n in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")}
+    med = sorted(ts)[len(ts) // 2]
+    log(f"DiT-base train_step x{steps} (B={batch}, {cfg.latent_tokens}x"
+        f"{cfg.latent_dim} latents, {cond_len} cond tokens, f32 params, bf16 "
+        f"compute, AdamW): median {med:.4f} s/step (first {ts[0]:.3f} s, "
+        f"range {min(ts):.4f}-{max(ts):.4f}); peak {peak:.2f} GiB; "
+        f"fixed-batch loss {loss0:.5f} -> {loss1:.5f}; step losses "
+        f"{[round(x, 4) for x in losses[:3]]} ... "
+        f"{[round(x, 4) for x in losses[-3:]]}; launches per step {per_step}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("DiT-base: non-finite loss")
+    if any(v != 2 * cfg.depth for v in per_step.values()):
+        raise AssertionError(f"DiT-base launches per step {per_step}, "
+                             f"expected {2 * cfg.depth} each")
+    if not loss1 < loss0:
+        raise AssertionError("DiT-base: the fixed-batch loss did not fall")
+    results["dit_launches"] = counts
+    results["dit_step_sec"] = med
+
+    # sample at base: 4 Euler steps, guidance 5 (one 2B-batch forward each)
+    n_obj = 6
+    cond_s = torch.randn((n_obj, cond_len, cfg.cond_dim), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = sample(model, cond_s, num_steps=4, guidance_scale=5.0,
+                 generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    log(f"DiT-base sample: 4 steps, guidance 5.0, B={n_obj}, {cond_len} cond "
+        f"tokens: {dt:.3f} s; latents {tuple(lat.shape)}; launches {counts}")
+    if tuple(lat.shape) != (n_obj, cfg.latent_tokens, cfg.latent_dim) or \
+            not bool(lat.isfinite().all()):
+        raise AssertionError("DiT-base sample: wrong shape or non-finite")
+    if counts["flash_fwd"] != 4 * 2 * cfg.depth:
+        raise AssertionError(f"DiT-base sample launches {counts}")
+    results["dit_sample_launches"] = counts
+
+
+def phase_sam_grad(results):
+    """The gradient of SAM's image encoder: a small SAM on the card (bf16,
+    kernels) against the CPU (f32, plain versions), then SAM-H at full
+    size. Each is the VJP of the embedding with a N(0, 1) cotangent drawn
+    from a seed: Σ emb² would be constant through the neck's last LayerNorm
+    at flax's init (unit scale, zero bias), its gradient rounding noise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models.sam import SAM, SamConfig, init_flax_style_
+
+    # phase 5's small config: grid 32 = 1024 tokens takes the grid-bias kernel
+    # in the global block (heads of 80), the windowed block the einsum path;
+    # the rel-pos tables are drawn non-zero by init_flax_style_
+    small = SamConfig(image_size=512, width=160, depth=2, num_heads=2,
+                      window=14, global_blocks=(1,), prompt_dim=256)
+    cpu_model = SAM(dataclasses.replace(small, dtype=torch.float32),
+                    device="cpu")
+    init_flax_style_(cpu_model, torch.Generator().manual_seed(8))
+    gpu_model = SAM(small)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(9)
+    g = small.grid
+    img = torch.from_numpy(rng.random(
+        (1, small.image_size, small.image_size, 3)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(1, g, g, small.prompt_dim))
+                           .astype(np.float32))
+    watched = ("attn.rel_pos_h", "attn.rel_pos_w", "attn.qkv.weight")
+    grads = {}
+    kernels.reset_counts()
+    for name, model, dev in (("cpu", cpu_model, "cpu"),
+                             ("gpu", gpu_model, "cuda")):
+        blk = model.image_encoder.block1
+        ps = [blk.get_parameter(w) for w in watched]
+        emb = model.encode(img.to(dev))
+        grads[name] = [t.float().cpu() for t in torch.autograd.grad(
+            (emb.float() * cot.to(dev)).sum(), ps)]
+    small_counts = dict(kernels.LAUNCHES)
+    errs = {w: float((g - r).abs().max() / r.abs().max())
+            for w, g, r in zip(watched, grads["gpu"], grads["cpu"])}
+    log(f"small SAM encoder VJP with a N(0, 1) cotangent, card bf16 kernels "
+        f"vs CPU f32 plain, global block: max error / max |ref| "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol 5e-2); "
+        f"launches {small_counts}")
+    if not max(errs.values()) < 5e-2:
+        raise AssertionError("small SAM encoder gradient on the card "
+                             "disagrees with the CPU")
+    if small_counts["flash_gb_bwd_dq"] != 1 or \
+            small_counts["flash_gb_bwd_dkv"] != 1:
+        raise AssertionError("small SAM gradient did not take the grid-bias "
+                             "backward kernels")
+    del cpu_model, gpu_model
+
+    cfg = SamConfig()
+    model = SAM(cfg)
+    init_flax_style_(model, torch.Generator(device="cuda").manual_seed(10))
+    model.eval()
+    enc_params = list(model.image_encoder.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    img = torch.rand((1, cfg.image_size, cfg.image_size, 3), generator=gen,
+                     device="cuda")
+    cot = torch.randn((1, cfg.grid, cfg.grid, cfg.prompt_dim), generator=gen,
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    emb = model.encode(img)
+    grads = torch.autograd.grad((emb.float() * cot).sum(), enc_params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.stack([g.isfinite().all() for g in grads]).all())
+    named = dict(zip((n for n, _ in model.image_encoder.named_parameters()),
+                     grads))
+    rel = [float(named[f"block{i}.attn.rel_pos_{a}"].abs().max())
+           for i in cfg.global_blocks for a in "hw"]
+    log(f"SAM-H encoder gradient (1024², 32 blocks, {len(enc_params)} "
+        f"parameter tensors): forward + backward {dt:.3f} s; peak "
+        f"{peak:.2f} GiB; gradients finite {finite}; global blocks' rel-pos "
+        f"gradient max |.| {[f'{x:.3e}' for x in rel]}; launches {counts}")
+    if not finite or min(rel) <= 0:
+        raise AssertionError("SAM-H encoder gradient: non-finite, or a global "
+                             "block's rel-pos gradient is zero")
+    n_glob = len(cfg.global_blocks)
+    if counts["flash_gb_bwd_dq"] != n_glob or \
+            counts["flash_gb_bwd_dkv"] != n_glob:
+        raise AssertionError(f"SAM-H encoder gradient launches {counts}")
+    results["sam_grad_launches"] = counts
+    results["sam_grad_sec"] = dt
+
+
 def main() -> int:
     import torch
 
@@ -802,15 +1278,17 @@ def main() -> int:
     phase_device(kernels)
     results = {}
     phase_kernels(results)
+    phase_bwd_kernels(results)
     phase_scene(results)
     phase_fit(results)
     phase_sam(results)
+    phase_dit(results)
+    phase_sam_grad(results)
 
     summary = []
     for name, meta in KERNELS.items():
         r = results[name]
-        launches = sum(results[path].get(name, 0) for path in
-                       ("scene_launches", "fit_launches", "sam_launches"))
+        launches = sum(results[path].get(name, 0) for path in MAIN_PATHS)
         if launches == 0:
             raise AssertionError(f"{name} was never launched by the main path")
         summary.append(dict(name=name, **meta, launches=launches,
@@ -818,7 +1296,9 @@ def main() -> int:
                             tolerance=r["tolerance"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"],
+                            **({"library": r["library"]} if "library" in r
+                               else {})))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

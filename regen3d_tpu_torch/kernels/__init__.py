@@ -25,11 +25,14 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_gb_fwd", "silhouette")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_gb_fwd", "flash_gb_bwd",
+           "silhouette")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_gb_fwd": 0,
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0, "flash_gb_fwd": 0,
+                            "flash_gb_bwd_dq": 0, "flash_gb_bwd_dkv": 0,
                             "silhouette_fwd": 0, "silhouette_bwd": 0}
 BUILD_LOG: Dict[str, str] = {}
 
@@ -44,11 +47,27 @@ _SIGNATURES = {
         # q, k, v, o, lse, bh, sq, sk, d, scale, stream
         "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
+    "flash_bwd": {
+        # q, k, v, g, lse, delta, dq, bh, sq, sk, d, scale, stream
+        "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                              _P],
+        # q, k, v, g, lse, delta, dk, dv, bh, sq, sk, d, scale, stream
+        "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _P],
+    },
     "flash_gb_fwd": {
         # q, k, v, bias_h, bias_w, o, lse, bh, sq, sk, kh, kw, d, scale,
         # stream
         "flash_gb_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _F, _P],
+    },
+    "flash_gb_bwd": {
+        # q, k, v, bias_h, bias_w, g, lse, delta, dq, dbias_h, dbias_w, bh,
+        # sq, sk, kh, kw, d, scale, stream
+        "flash_gb_bwd_dq_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
+        # q, k, v, bias_h, bias_w, g, lse, delta, dk, dv, bh, sq, sk, kh, kw,
+        # d, scale, stream
+        "flash_gb_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
     },
     "silhouette": {
         # nvalid, coeffs, valid, tile_uv, acc, n_blocks, n_tiles, k,

@@ -1,7 +1,9 @@
 """Carry a flax parameter tree of the JAX package's models into the port's
 state dicts: ``regen3d_tpu.models.vggt.VGGT`` → :class:`~regen3d_tpu_torch.
-models.vggt.VGGT` and ``regen3d_tpu.models.sam.SAM`` →
-:class:`~regen3d_tpu_torch.models.sam.SAM`.
+models.vggt.VGGT`, ``regen3d_tpu.models.sam.SAM`` →
+:class:`~regen3d_tpu_torch.models.sam.SAM` and
+``regen3d_tpu.models.dit.ShapeDiT`` →
+:class:`~regen3d_tpu_torch.models.dit.ShapeDiT`.
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
@@ -13,7 +15,8 @@ mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
   torch does (see ``layers.ConvTranspose``). Which 4-D kernels are
   transposed convolutions is named per model, since the shapes cannot tell
   (where I = O a Conv rule would load mirrored taps in silence);
-* ``LayerNorm.scale`` → ``weight``; every other leaf keeps its name.
+* ``LayerNorm.scale`` and ``RMSNorm.scale`` → ``weight``; every other leaf
+  (``bias``, ``latent_pos``, ``inst_gate{i}``, SAM's tables) keeps its name.
 
 Takes numpy arrays (``jax.device_get`` of the tree) and imports no JAX.
 """
@@ -88,3 +91,14 @@ def load_vggt_from_jax(model: torch.nn.Module, params: Mapping) -> None:
 def load_sam_from_jax(model: torch.nn.Module, params: Mapping) -> None:
     """As :func:`load_vggt_from_jax`, for SAM."""
     model.load_state_dict(sam_state_from_jax(params), strict=True)
+
+
+def dit_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of a flax ShapeDiT tree."""
+    return state_from_jax(params)
+
+
+def load_dit_from_jax(model: torch.nn.Module, params: Mapping) -> None:
+    """As :func:`load_vggt_from_jax`, for the shape DiT (the f32 leaves load
+    into its f32 parameters)."""
+    model.load_state_dict(dit_state_from_jax(params), strict=True)

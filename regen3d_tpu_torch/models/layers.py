@@ -2,9 +2,15 @@
 
 The modules follow flax's numerics, which the JAX package runs:
 
-* ``Dense`` / ``Conv`` compute in their weights' dtype (flax casts input and
-  params to ``dtype``; storing the weights in that dtype is the same
-  rounding);
+* ``Dense`` casts input, weight and bias to its compute ``dtype``, as flax
+  does. Its parameters are stored in ``param_dtype``, which defaults to
+  ``dtype``: for inference storing the weights in bf16 is flax's own
+  rounding, while training keeps flax's layout (``param_dtype`` f32, bf16
+  compute), since bf16 keeps 8 significant bits and an AdamW update smaller
+  than 2⁻⁸ of a weight would round away. ``Conv`` computes in its weights'
+  dtype;
+* ``RMSNorm`` is flax's: eps 1e-6, f32 statistics and scale, output in
+  ``dtype``;
 * ``LayerNorm`` uses eps 1e-6 (torch's default is 1e-5), computes in f32 with
   f32 params and returns ``dtype``;
 * GELU is the tanh approximation (flax ``nn.gelu``);
@@ -31,14 +37,18 @@ LN_EPS = 1e-6
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense``: the input is cast to the weights' dtype."""
+    """flax ``nn.Dense``: input, weight and bias are cast to ``dtype``; the
+    parameters are stored in ``param_dtype`` (default ``dtype``)."""
 
     def __init__(self, d_in, d_out, bias=True, dtype=torch.float32,
-                 device="cuda"):
-        super().__init__(d_in, d_out, bias=bias, dtype=dtype, device=device)
+                 device="cuda", param_dtype=None):
+        super().__init__(d_in, d_out, bias=bias, dtype=param_dtype or dtype,
+                         device=device)
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 class Conv(nn.Conv2d):
@@ -110,12 +120,29 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm`` over the last axis: f32 statistics and f32
+    ``weight`` (flax's ``scale``), output in ``dtype``."""
+
+    def __init__(self, dim, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x):
+        x = x.float()
+        mul = torch.rsqrt(x.square().mean(-1, keepdim=True) + LN_EPS)
+        return (x * (mul * self.weight)).to(self.dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, d_in, hidden, out: Optional[int] = None,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", param_dtype=None):
         super().__init__()
-        self.fc1 = Dense(d_in, hidden, dtype=dtype, device=device)
-        self.fc2 = Dense(hidden, out or d_in, dtype=dtype, device=device)
+        self.fc1 = Dense(d_in, hidden, dtype=dtype, device=device,
+                         param_dtype=param_dtype)
+        self.fc2 = Dense(hidden, out or d_in, dtype=dtype, device=device,
+                         param_dtype=param_dtype)
 
     def forward(self, x):
         return self.fc2(gelu(self.fc1(x)))
@@ -137,6 +164,39 @@ class FusedAttention(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
         o = flash_attention(q, k, v)
         return self.proj(o.transpose(1, 2).reshape(b, s, e))
+
+
+class Attention(nn.Module):
+    """Multi-head self- or cross-attention with separate q, k, v and proj
+    projections (all with bias) and, with ``qk_norm``, an RMSNorm over the
+    head dim of q and k; on the flash kernels."""
+
+    def __init__(self, dim, num_heads, qk_norm=False, dtype=torch.float32,
+                 device="cuda", param_dtype=None):
+        super().__init__()
+        self.num_heads = num_heads
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.q, self.k, self.v, self.proj = (Dense(dim, dim, **kw)
+                                             for _ in range(4))
+        if qk_norm:
+            self.q_norm = RMSNorm(dim // num_heads, dtype=dtype, device=device)
+            self.k_norm = RMSNorm(dim // num_heads, dtype=dtype, device=device)
+        else:
+            self.q_norm = self.k_norm = None
+
+    def forward(self, x_q, x_kv=None):
+        x_kv = x_q if x_kv is None else x_kv
+        b, sq, e = x_q.shape
+        hd = e // self.num_heads
+
+        def split(t):
+            return t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)
+
+        q, k, v = split(self.q(x_q)), split(self.k(x_kv)), split(self.v(x_kv))
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        return self.proj(o.transpose(1, 2).reshape(b, sq, e))
 
 
 class ViTBlock(nn.Module):
@@ -164,6 +224,56 @@ class ViTBlock(nn.Module):
         if self.ls2 is not None:
             h = h * self.ls2.to(h.dtype)
         return x + h
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding: (B,) → (B, dim) f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], -1)
+    return F.pad(emb, (0, dim % 2))
+
+
+def modulate(x, shift, scale):
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+class DiTBlock(nn.Module):
+    """AdaLN-Zero DiT block with optional cross-attention conditioning
+    (self-attention over shape-latent tokens, cross-attention to image
+    tokens, each gated by the timestep embedding through ``adaLN``)."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, use_cross=True,
+                 dtype=torch.float32, device="cuda", param_dtype=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.n_mod = 9 if use_cross else 6
+        self.adaLN = Dense(dim, self.n_mod * dim, **kw)
+        self.norm1 = LayerNorm(dim, affine=False, dtype=dtype, device=device)
+        self.attn = Attention(dim, num_heads, qk_norm=True, **kw)
+        if use_cross:
+            self.norm_cross = LayerNorm(dim, affine=False, dtype=dtype,
+                                        device=device)
+            self.cross = Attention(dim, num_heads, qk_norm=True, **kw)
+        else:
+            self.cross = None
+        self.norm2 = LayerNorm(dim, affine=False, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+
+    def forward(self, x, t_emb, cond=None):
+        parts = self.adaLN(F.silu(t_emb)).chunk(self.n_mod, dim=-1)
+        x = x + parts[2][:, None, :] * self.attn(
+            modulate(self.norm1(x), parts[0], parts[1]))
+        idx = 3
+        if self.cross is not None:
+            x = x + parts[5][:, None, :] * self.cross(
+                modulate(self.norm_cross(x), parts[3], parts[4]), cond)
+            idx = 6
+        h = modulate(self.norm2(x), parts[idx], parts[idx + 1])
+        return x + parts[idx + 2][:, None, :] * self.mlp(h)
 
 
 class PatchEmbed(nn.Module):

@@ -56,7 +56,7 @@ class PoseParams(NamedTuple):
     log_scale: torch.Tensor     # (B,)
 
     @classmethod
-    def zeros(cls, b: int, device=None) -> "PoseParams":
+    def zeros(cls, b: int, device="cuda") -> "PoseParams":
         z = lambda *s: torch.zeros(*s, dtype=torch.float32, device=device)
         return cls(z(b, 3), z(b), z(b, 3), z(b))
 

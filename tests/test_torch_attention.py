@@ -1,21 +1,34 @@
-"""Port flash attention (plain version of the CUDA kernel) vs the JAX Pallas
-kernel in interpret mode: ragged Sq/Sk including S = 2, head dims 64 and 128
-(VGGT) and 32 and 16 (SAM's mask decoder: 11 prompt tokens against image
-tokens and back), f32, atol 1e-5. Also the kernel wrapper's refusals on the
-CPU side."""
+"""Port flash attention (plain versions of the CUDA kernels) vs the JAX
+Pallas kernels in interpret mode: ragged Sq/Sk including S = 2, head dims 64
+and 128 (VGGT) and 32 and 16 (SAM's mask decoder: 11 prompt tokens against
+image tokens and back), f32, atol 1e-5. The backward (the autograd Function
+with the dq and dkv kernels' plain versions) against ``jax.grad`` through
+the Pallas custom VJP and against torch autograd of ``attention_reference``,
+atol = rtol = 5e-4 as the JAX package's own gradient test; the same for
+the grid-bias op over all five arguments, dbias_h and dbias_w compared apart
+from dq. Also the kernel wrapper's refusals on the CPU side."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from regen3d_tpu.ops.attention import flash_attention as jax_flash
+from regen3d_tpu.ops.attention import flash_attention_grid_bias
 from regen3d_tpu_torch.ops.attention import (
     attention_reference,
     flash_attention,
     flash_attention_fwd,
+    flash_attention_grid_bias as port_grid_bias,
+    flash_attention_grid_bias_fwd,
+    flash_bwd_dkv_reference,
+    flash_bwd_dq_reference,
+    grid_bias_bwd_dq_reference,
+    grid_bias_reference,
 )
 from test_torch_package import one_torch_thread  # noqa: F401
+from test_torch_sam import _grid_problem
 
 
 @pytest.mark.parametrize("sq,sk,d", [(37, 37, 64), (40, 37, 128), (2, 2, 128),
@@ -48,3 +61,107 @@ def test_rejects_mismatched_shapes():
     q = torch.zeros(1, 2, 4, 64)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, torch.zeros(1, 2, 4, 32), torch.zeros(1, 2, 4, 32))
+
+
+@pytest.mark.parametrize("sq,sk,d,bq,bk", [(24, 24, 16, 8, 8),
+                                           (33, 19, 16, 16, 8)])
+def test_flash_backward_matches_jax_grad(sq, sk, d, bq, bk):
+    """The first case is the JAX package's own gradient test's shape; the
+    second is unaligned, Sq != Sk, with padded q and kv tiles on the JAX
+    side (the port's kernels mask instead)."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (rng.normal(size=(1, 2, s, d)).astype(np.float32)
+               for s in (sq, sk, sk))
+
+    def f(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, None, bq, bk, True) ** 2)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o, lse = flash_attention_fwd(tq, tk, tv)
+    (o ** 2).sum().backward()
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-4,
+                                   rtol=5e-4, err_msg=name)
+    # the Function's backward is exactly the two plain versions
+    with torch.no_grad():
+        g = 2 * o
+        delta = (o * g).sum(-1)
+        scale = d ** -0.5
+        dq = flash_bwd_dq_reference(tq, tk, tv, g, lse, delta, scale)
+        dk, dv = flash_bwd_dkv_reference(tq, tk, tv, g, lse, delta, scale)
+    for got, ref in ((tq.grad, dq), (tk.grad, dk), (tv.grad, dv)):
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+def test_flash_backward_matches_torch_autograd_of_reference():
+    """A non-contiguous upstream gradient (a transposed view), as the
+    attention layers' head merge gives it."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, s, 32))
+                                .astype(np.float32)).requires_grad_()
+               for s in (21, 40, 40))
+    w = torch.from_numpy(rng.normal(size=(2, 21, 3, 32)).astype(np.float32))
+
+    def loss(o):
+        return (o.transpose(1, 2) * w).sum()
+
+    loss(flash_attention(q, k, v)).backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    loss(attention_reference(q, k, v)[0]).backward()
+    for a, t, name in zip(got, (q, k, v), "qkv"):
+        np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=5e-4,
+                                   rtol=5e-4, err_msg=name)
+
+
+def test_lse_is_not_differentiable():
+    q = torch.zeros(1, 1, 3, 16, requires_grad=True)
+    _, lse = flash_attention_fwd(q, q, q)
+    assert not lse.requires_grad
+
+
+@pytest.mark.parametrize("b,h,kh,kw,d,block_q", [(2, 3, 4, 8, 8, 8),
+                                                 (2, 2, 14, 14, 8, 64)])
+def test_grid_bias_backward_matches_jax_grad(b, h, kh, kw, d, block_q):
+    """The first case is the JAX package's own five-argument gradient test's
+    shape; the second the 14×14 window, padded on the JAX side. The bias
+    gradients are compared on their own: they sum the unscaled ds, dq takes
+    the scale, and a kernel that scaled both would be off by 8^-½ here."""
+    args = _grid_problem(np.random.default_rng(kh * kw), b, h, kh, kw, d)
+
+    def f(*a):
+        return jnp.sum(flash_attention_grid_bias(*a, kw, None, block_q,
+                                                 True) ** 2)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a)
+                                                  for a in args))
+    ts_ = [torch.from_numpy(a).requires_grad_() for a in args]
+    o, lse = flash_attention_grid_bias_fwd(*ts_, kw)
+    (o ** 2).sum().backward()
+    for t, w, name in zip(ts_, want, ["q", "k", "v", "bias_h", "bias_w"]):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4,
+                                   rtol=5e-4, err_msg=name)
+    # the plain version's dbias is ds summed unscaled
+    with torch.no_grad():
+        g = 2 * o
+        _, dbh, dbw = grid_bias_bwd_dq_reference(
+            *ts_, kw, g, lse, (o * g).sum(-1), d ** -0.5)
+    torch.testing.assert_close(ts_[3].grad, dbh, atol=0, rtol=0)
+    torch.testing.assert_close(ts_[4].grad, dbw, atol=0, rtol=0)
+
+
+def test_grid_bias_backward_matches_torch_autograd_of_reference():
+    args = [torch.from_numpy(a).requires_grad_() for a in _grid_problem(
+        np.random.default_rng(4), 1, 2, 3, 7, 16)]
+    w = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(1, 2, 21, 16)).astype(np.float32))
+    (port_grid_bias(*args, 7) * w).sum().backward()
+    got = [t.grad.clone() for t in args]
+    for t in args:
+        t.grad = None
+    (grid_bias_reference(*args, 7)[0] * w).sum().backward()
+    for a, t, name in zip(got, args, ["q", "k", "v", "bias_h", "bias_w"]):
+        np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=5e-4,
+                                   rtol=5e-4, err_msg=name)

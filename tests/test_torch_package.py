@@ -1,7 +1,7 @@
 """The port stands apart from JAX: importing it and every slice module pulls
 in neither ``jax`` nor ``regen3d_tpu``; the weight bridge uses every flax
-leaf of the tiny VGGT exactly once and loads with strict=True; models built
-without a device go to the card."""
+leaf of the tiny VGGT exactly once and loads with strict=True; models and
+``PoseParams.zeros`` built without a device go to the card."""
 
 import dataclasses
 import subprocess
@@ -38,6 +38,7 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.scene_step", "regen3d_tpu_torch.models.sam",
     "regen3d_tpu_torch.pipeline.detection",
     "regen3d_tpu_torch.pipeline.phase1_segmentation",
+    "regen3d_tpu_torch.models.dit", "regen3d_tpu_torch.parallel.train",
 ]
 
 
@@ -91,14 +92,31 @@ def test_weight_bridge_uses_every_leaf_once():
 def test_models_are_built_on_the_card_by_default():
     """No device means the card: with CUDA the parameters land there,
     without it construction fails (nothing falls back to the CPU)."""
+    from regen3d_tpu_torch.models.dit import DiTConfig, ShapeDiT
     from regen3d_tpu_torch.models.sam import SAM, SamConfig
     from regen3d_tpu_torch.models.vggt import VGGT, VGGTConfig
 
     for build in (lambda: VGGT(VGGTConfig.tiny()),
-                  lambda: SAM(SamConfig.tiny())):
+                  lambda: SAM(SamConfig.tiny()),
+                  lambda: ShapeDiT(DiTConfig.tiny())):
         if torch.cuda.is_available():
             assert {p.device.type for p in build().parameters()} == {"cuda"}
         else:
             with pytest.raises((AssertionError, RuntimeError),
                                match="CUDA"):
                 build()
+
+
+def test_pose_params_zeros_default_to_the_card():
+    """``PoseParams.zeros`` starts ``fit_poses`` on the card unless the
+    caller asks for the CPU."""
+    from regen3d_tpu_torch.pipeline.pose_fit import PoseParams
+
+    if torch.cuda.is_available():
+        assert PoseParams.zeros(2).yaw.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            PoseParams.zeros(2)
+    p = PoseParams.zeros(2, device="cpu")
+    assert p.translation.shape == (2, 3) and p.yaw.device.type == "cpu"
+    assert float(p.log_scale.abs().sum()) == 0

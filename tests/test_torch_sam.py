@@ -10,7 +10,10 @@ unseen):
 * the image encoder through the einsum path and the grid-bias path,
   rtol 2e-4, atol 2e-5 (``tests/test_models_sam.py``'s tolerance);
 * ``SAM.decode`` with boxes, points and padding labels: masks and IoU
-  within 1e-4 of their largest value.
+  within 1e-4 of their largest value;
+* the image encoder's gradient (of Σ emb²) against ``jax.grad`` through the
+  grid-bias path and the einsum path: every parameter within 2e-4 relative
+  plus 2e-5 of its largest value.
 """
 
 import dataclasses
@@ -203,3 +206,32 @@ def test_decode_matches_jax(tiny_pair):
     assert np.abs(got_m.numpy() - want_m).max() <= 1e-4 * np.abs(want_m).max()
     assert np.abs(got_iou.numpy() - want_iou).max() <= \
         1e-4 * np.abs(want_iou).max()
+
+
+@pytest.mark.parametrize("flash_min_tokens", [10 ** 9, 1],
+                         ids=["einsum", "grid_bias"])
+def test_image_encoder_gradient_matches_jax(tiny_pair, flash_min_tokens):
+    """The gradient of Σ emb² with respect to every encoder parameter. On
+    the grid-bias path the bias factors come from q, so q's gradient has a
+    bias term that autograd adds through the op's dbias outputs; the qkv
+    and rel-pos gradients see it."""
+    _, params, _ = tiny_pair
+    jc = dataclasses.replace(js.SamConfig.tiny(), dtype=jnp.float32,
+                             flash_min_tokens=flash_min_tokens)
+    img = np.random.default_rng(6).random((1, 64, 64, 3)).astype(np.float32)
+    enc = js.SamImageEncoder(jc)
+
+    def loss(p):
+        return jnp.sum(enc.apply({"params": p}, jnp.asarray(img)) ** 2)
+
+    want = jax.jit(jax.grad(loss))(params["params"]["image_encoder"])
+    model = port_sam(params, flash_min_tokens)
+    (model.encode(torch.from_numpy(img)) ** 2).sum().backward()
+    got = {name: p.grad for name, p in model.image_encoder.named_parameters()}
+    flat = state_from_jax({"params": want})
+    assert set(flat) == set(got)
+    for name, w in flat.items():
+        w = w.numpy()
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=2e-4,
+                                   atol=2e-5 * np.abs(w).max(), err_msg=name)
+    assert np.abs(flat["block1.attn.rel_pos_h"].numpy()).max() > 0
