@@ -62,11 +62,14 @@ ROOT = Path(__file__).resolve().parent
 
 # (B, H, Sq, Sk, D): VGGT-1B's backbone, frame and global blocks and camera
 # trunk; SAM-H's mask decoder at 8 boxes (token self-attention, token →
-# image, image → token)
+# image, image → token); DiT-base's self- and cross-attention in train_step
+# (B = 8) and in sample's guided batch (2 × 6 objects)
 FLASH_SHAPES = [(2, 16, 1370, 1370, 64), (2, 16, 1374, 1374, 64),
                 (1, 16, 2748, 2748, 64), (1, 16, 2, 2, 128),
                 (8, 8, 11, 11, 32), (8, 8, 11, 4096, 16),
-                (8, 8, 4096, 11, 16)]
+                (8, 8, 4096, 11, 16),
+                (8, 16, 512, 512, 64), (8, 16, 512, 257, 64),
+                (12, 16, 512, 512, 64), (12, 16, 512, 257, 64)]
 # SAM-H's global blocks: (B, H, S, D) with a 64 × 64 key grid
 GB_SHAPE, GB_GRID = (1, 16, 4096, 80), (64, 64)
 # (B, H, Sq, Sk, D) of the backward kernels: DiT-base's self- and
@@ -87,10 +90,10 @@ KERNELS = {
                          source="regen3d_tpu_torch/csrc/flash_gb_fwd.cu",
                          replaces="regen3d_tpu/ops/attention.py:355"),
     "flash_gb_bwd_dq": dict(route="cuda",
-                            source="regen3d_tpu_torch/csrc/flash_gb_bwd.cu",
+                            source="regen3d_tpu_torch/csrc/flash_bwd.cu",
                             replaces="regen3d_tpu/ops/attention.py:396"),
     "flash_gb_bwd_dkv": dict(route="cuda",
-                             source="regen3d_tpu_torch/csrc/flash_gb_bwd.cu",
+                             source="regen3d_tpu_torch/csrc/flash_bwd.cu",
                              replaces="regen3d_tpu/ops/attention.py:437"),
     "silhouette_fwd": dict(route="cuda",
                            source="regen3d_tpu_torch/csrc/silhouette.cu",

@@ -25,8 +25,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "flash_gb_fwd", "flash_gb_bwd",
-           "silhouette")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_gb_fwd", "silhouette")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,20 +53,18 @@ _SIGNATURES = {
         # q, k, v, g, lse, delta, dk, dv, bh, sq, sk, d, scale, stream
         "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _F, _P],
-    },
-    "flash_gb_fwd": {
-        # q, k, v, bias_h, bias_w, o, lse, bh, sq, sk, kh, kw, d, scale,
-        # stream
-        "flash_gb_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _P],
-    },
-    "flash_gb_bwd": {
         # q, k, v, bias_h, bias_w, g, lse, delta, dq, dbias_h, dbias_w, bh,
         # sq, sk, kh, kw, d, scale, stream
         "flash_gb_bwd_dq_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
         # q, k, v, bias_h, bias_w, g, lse, delta, dk, dv, bh, sq, sk, kh, kw,
         # d, scale, stream
         "flash_gb_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
+    },
+    "flash_gb_fwd": {
+        # q, k, v, bias_h, bias_w, o, lse, bh, sq, sk, kh, kw, d, scale,
+        # stream
+        "flash_gb_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _P],
     },
     "silhouette": {
         # nvalid, coeffs, valid, tile_uv, acc, n_blocks, n_tiles, k,

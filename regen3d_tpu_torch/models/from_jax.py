@@ -93,12 +93,7 @@ def load_sam_from_jax(model: torch.nn.Module, params: Mapping) -> None:
     model.load_state_dict(sam_state_from_jax(params), strict=True)
 
 
-def dit_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The state dict of a flax ShapeDiT tree."""
-    return state_from_jax(params)
-
-
 def load_dit_from_jax(model: torch.nn.Module, params: Mapping) -> None:
     """As :func:`load_vggt_from_jax`, for the shape DiT (the f32 leaves load
     into its f32 parameters)."""
-    model.load_state_dict(dit_state_from_jax(params), strict=True)
+    model.load_state_dict(state_from_jax(params), strict=True)

@@ -8,8 +8,9 @@ q, k, v are (B, H, S, D). Both ops are ``torch.autograd.Function``s.
   under autograd, ``csrc/flash_bwd.cu``'s dq and dkv kernels backward
   (bf16 in and out, f32 accumulation, D ∈ {16, 32, 64, 128}).
 * :func:`flash_attention_grid_bias_fwd` launches ``csrc/flash_gb_fwd.cu``
-  forward and ``csrc/flash_gb_bwd.cu``'s dq/dbias and dkv kernels backward
-  (the same with SAM's factored key-grid bias, f32 bias factors and bias
+  forward and the grid-bias instances of ``csrc/flash_bwd.cu``'s dq and
+  dkv kernels backward (the same with SAM's factored key-grid bias, the dq
+  kernel also summing the bias gradients; f32 bias factors and bias
   gradients, D = 80).
 
 The backward follows the JAX package's: delta = Σ_d o·g in f32 (plain
@@ -274,7 +275,7 @@ def grid_bias_bwd_dq(q, k, v, bias_h, bias_w, kw: int, g, lse, delta,
     _check_gb_bwd("grid_bias_bwd_dq", q, k, v, bias_h, bias_w, g, lse, delta)
     dq = torch.empty_like(q)
     dbh, dbw = torch.empty_like(bias_h), torch.empty_like(bias_w)
-    _launch("flash_gb_bwd", "flash_gb_bwd_dq_bf16", "flash_gb_bwd_dq", q, k,
+    _launch("flash_bwd", "flash_gb_bwd_dq_bf16", "flash_gb_bwd_dq", q, k,
             v, bias_h, bias_w, g, lse, delta, dq, dbh, dbw,
             *_gb_dims(q, k, kw, scale))
     return dq, dbh, dbw
@@ -290,7 +291,7 @@ def grid_bias_bwd_dkv(q, k, v, bias_h, bias_w, kw: int, g, lse, delta,
         return dk.to(k.dtype), dv.to(v.dtype)
     _check_gb_bwd("grid_bias_bwd_dkv", q, k, v, bias_h, bias_w, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_gb_bwd", "flash_gb_bwd_dkv_bf16", "flash_gb_bwd_dkv", q, k,
+    _launch("flash_bwd", "flash_gb_bwd_dkv_bf16", "flash_gb_bwd_dkv", q, k,
             v, bias_h, bias_w, g, lse, delta, dk, dv,
             *_gb_dims(q, k, kw, scale))
     return dk, dv

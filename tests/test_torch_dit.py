@@ -31,11 +31,7 @@ import torch
 from regen3d_tpu.models import dit as jd
 from regen3d_tpu.parallel import train as jt
 from regen3d_tpu_torch.models import dit as td
-from regen3d_tpu_torch.models.from_jax import (
-    dit_state_from_jax,
-    load_dit_from_jax,
-    state_from_jax,
-)
+from regen3d_tpu_torch.models.from_jax import load_dit_from_jax, state_from_jax
 from regen3d_tpu_torch.parallel import train as tt
 from test_torch_package import one_torch_thread  # noqa: F401
 
@@ -133,7 +129,7 @@ def ci_pair():
 def test_weight_bridge_uses_every_leaf_once(ci_pair):
     params = jax.tree_util.tree_map(np.array, ci_pair[1])
     n_leaves = len(jax.tree_util.tree_leaves(params))
-    state = dit_state_from_jax(params)
+    state = state_from_jax(params)
     model = port_dit(params, True)
     assert len(state) == n_leaves == len(model.state_dict())
     assert all(p.dtype == torch.float32 for p in model.parameters())
