@@ -14,8 +14,10 @@ Phases, each reported on one line:
    function, that call's; beside them the least time the card could take
    (bytes over 3.35 TB/s or operations over the peak rate of their type);
    then the four backward kernels (flash dq and dkv at DiT-base's self and
-   cross shapes and a ragged-query shape, the grid-bias pair at SAM-H's
-   global blocks) with a non-zero upstream gradient, beside SDPA's backward;
+   cross shapes and a ragged-query shape, timed, and at the other head dims,
+   checked; the grid-bias pair at SAM-H's global blocks) with a non-zero
+   upstream gradient, beside SDPA's backward and its errors, two launches
+   of each flash kernel compared bit for bit;
 3. scene_step at the full VGGT-1B width and depth (random weights from a
    seed), 2 frames and 8 objects, checked finite and, on a small config,
    against the same step on the CPU's plain versions;
@@ -36,7 +38,8 @@ Phases, each reported on one line:
    of train_step at B = 8 (512 × 64 latents, 257 condition tokens): every
    loss and gradient finite, every attention's gradient non-zero, 32
    launches per step of each flash kernel, and the loss on a fixed batch
-   falls; then sample() at base (4 steps, guidance 5, B = 6);
+   falls; the host's and the device's time for each call of a step (loss,
+   backward, AdamW); then sample() at base (4 steps, guidance 5, B = 6);
 7. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
@@ -53,6 +56,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +81,10 @@ GB_SHAPE, GB_GRID = (1, 16, 4096, 80), (64, 64)
 # shape (1374 = 21·64 + 30) for the dkv kernel's masking
 BWD_SHAPES = [(8, 16, 512, 512, 64), (8, 16, 512, 257, 64),
               (2, 16, 1374, 1374, 64)]
+# the backward kernels' other head dims, ragged in Sq or Sk: held to the
+# same bound, timed but kept out of the sums, so those compare across PRs
+BWD_CHECK_SHAPES = [(8, 8, 11, 4096, 16), (8, 8, 4096, 11, 16),
+                    (2, 8, 300, 300, 32), (1, 16, 700, 700, 128)]
 KERNELS = {
     "flash_fwd": dict(route="cuda", source="regen3d_tpu_torch/csrc/flash_fwd.cu",
                       replaces="regen3d_tpu/ops/attention.py:46"),
@@ -149,12 +157,38 @@ def attention_bwd_work(b, h, sq, sk, d, bias_cols=0):
             "dkv": (8 * bh * sq * sk * d, reads + 4 * bh * sk * d)}
 
 
-def bwd_error(got, ref, name, bf16_out=True):
-    """(max abs error, bound) of a gradient against its plain version; raises
-    over the bound. The bound is 2⁻⁸·|ref| for one bf16 rounding of a bf16
-    output, plus f32 summation-order noise over up to a few thousand terms
-    in another order and the exp's last bits, 1e-3 of the largest |ref|
-    (2e-4 for the f32 bias gradients, which are not rounded)."""
+def bwd_error(got, ref, terms, name):
+    """(max abs error, max |ref|) of a flash backward output (dq, dk or dv)
+    against its f32 plain version; raises unless, elementwise,
+    err ≤ 2⁻⁸·|ref| + 2⁻⁸·terms + 1e-5·max|ref|, where ``terms`` is the
+    element's Σ|terms| (ops.attention.flash_bwd_abs_terms_reference). The
+    kernels round p and scale·ds to bf16 once before the second products
+    (ds·k, dsᵀ·q, pᵀ·g), as SDPA's backward does: each term moves by at most
+    2⁻⁸ of its magnitude (bf16's unit roundoff), so the sum by at most
+    2⁻⁸·Σ|terms|. Over hundreds of terms the signs cancel and half of that
+    would do, but over SAM's decoder's 11 prompt tokens one term can carry
+    the sum, and a model of the rounding reaches 1.3× of 2⁻⁹·Σ|terms| there.
+    The output is rounded to bf16 once, 2⁻⁸·|ref|; the f32 sums in another
+    order and the exp's last bits stay under 1e-5 of the largest |ref|. A
+    dropped 64-row tile or a scale applied twice moves an element by many
+    times the bound."""
+    ref_max = float(ref.abs().max())
+    err = (got.float() - ref).abs()
+    tol = 2.0 ** -8 * (ref.abs() + terms) + 1e-5 * ref_max
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{name}: error {float(err.max()):.3e} over its "
+                             f"bound, {float((err / tol).max()):.2f}× at "
+                             f"worst (max |ref| {ref_max:.3e})")
+    return float(err.max()), ref_max
+
+
+def gb_bwd_error(got, ref, name, bf16_out=True):
+    """(max abs error, max |ref|) of a grid-bias gradient against its plain
+    version; raises over the bound. The bound is 2⁻⁸·|ref| for one bf16
+    rounding of a bf16 output, plus f32 summation-order noise over up to a
+    few thousand terms in another order and the exp's last bits, 1e-3 of the
+    largest |ref| (2e-4 for the f32 bias gradients, which are not
+    rounded)."""
     ref_max = float(ref.abs().max())
     err = (got.float() - ref).abs()
     tol = (2.0 ** -8 * ref.abs() + 1e-3 * ref_max) if bf16_out \
@@ -207,9 +241,14 @@ def phase_device(kernels):
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{sorted(built) or 'nothing (up to date)'}")
     for name, text in kernels.BUILD_LOG.items():
+        fn = ""   # the kernel (and head dim) ptxas is reporting on
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"entry function '.*?([A-Za-z_]+_kernel)(ILi(\d+)E)?",
+                          line)
+            if m:
+                fn = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {fn}: {line.strip()}")
     return smi
 
 
@@ -391,90 +430,131 @@ def phase_kernels(results):
                                      tolerance="elementwise 2e-5 * sum|terms|")
 
 
-def phase_bwd_kernels(results):
-    """The four backward kernels against their plain versions, with a
-    non-zero upstream gradient g, at the DiT-base shapes, a ragged-query
-    shape and SAM-H's global blocks (non-zero bias factors); times beside
-    the backward of F.scaled_dot_product_attention, which computes dq, dk
-    and dv together (timed alone after an untimed forward)."""
+def sdpa_bwd_ms(q, k, v, g, mask=None):
+    """Device ms of F.scaled_dot_product_attention's backward (dq, dk and dv
+    together) alone, after an untimed forward."""
+    import torch
+    import torch.nn.functional as F
+
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+    return cuda_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), g,
+                                               retain_graph=True))
+
+
+def flash_bwd_case(shape, gen):
+    """The flash dq and dkv kernels at one (B, H, Sq, Sk, D) with a non-zero
+    upstream gradient: each output against its f32 plain version under
+    bwd_error, SDPA's backward's errors against the same plain versions, a
+    second launch of each kernel compared bit for bit, and the times of the
+    kernels, the plain versions and SDPA's backward."""
     import torch
     import torch.nn.functional as F
 
     from regen3d_tpu_torch.ops import attention as att
 
+    b, h, sq, skv, d = shape
+    q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device="cuda")
+            for _ in range(2))
+    g = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+    q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    s = d ** -0.5
+    with torch.no_grad():
+        o, lse = att.flash_attention_fwd(q, k, v)
+    delta = (o.float() * g.float()).sum(-1)
+    args = (q, k, v, g, lse, delta, s)
+    got = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+    again = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+    refs = (att.flash_bwd_dq_reference(*args),) + \
+        att.flash_bwd_dkv_reference(*args)
+    terms = att.flash_bwd_abs_terms_reference(*args)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib = torch.autograd.grad(F.scaled_dot_product_attention(qr, kr, vr),
+                              (qr, kr, vr), g)
+    torch.cuda.synchronize()
+    out = dict(err={}, ref_max={}, sdpa_err={})
+    for name, x, x2, ref, term, y in zip(("dq", "dk", "dv"), got, again,
+                                         refs, terms, lib):
+        kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+        if not torch.equal(x, x2):
+            raise AssertionError(f"{kernel} {shape}: two launches on the "
+                                 f"same inputs differ in {name}")
+        out["err"][name], out["ref_max"][name] = bwd_error(
+            x, ref, term, f"{kernel} {shape} {name}")
+        out["sdpa_err"][name] = float((y.float() - ref).abs().max())
+    del refs, terms, lib, qr, kr, vr
+    out["ms"] = dict(
+        dq=cuda_ms(lambda: att.flash_bwd_dq(*args)),
+        dkv=cuda_ms(lambda: att.flash_bwd_dkv(*args)),
+        dq_p=cuda_ms(lambda: att.flash_bwd_dq_reference(*args), reps=5),
+        dkv_p=cuda_ms(lambda: att.flash_bwd_dkv_reference(*args), reps=5),
+        lib=sdpa_bwd_ms(q, k, v, g))
+    return out
+
+
+def phase_bwd_kernels(results):
+    """The four backward kernels against their plain versions, with a
+    non-zero upstream gradient g: flash dq and dkv at the DiT-base shapes and
+    a ragged-query shape (timed, beside the backward of
+    F.scaled_dot_product_attention, which computes dq, dk and dv together)
+    and at the other head dims (checked), the grid-bias pair at SAM-H's
+    global blocks (non-zero bias factors)."""
+    import torch
+
+    from regen3d_tpu_torch.ops import attention as att
+
     gen = torch.Generator(device="cuda").manual_seed(4)
-    tol = ("2^-8*|ref| + 1e-3*max|ref| (one bf16 rounding of the output, "
-           "f32 sums in another order)")
+    tol = ("elementwise 2^-8*(|ref| + sum|terms|) + 1e-5*max|ref| (p and "
+           "scale*ds rounded to bf16 once before the second products, the "
+           "output once); each max error at most 2x SDPA backward's against "
+           "the same plain version; two launches bit-identical")
     acc = {n: dict(ms=0.0, plain_ms=0.0, ops=0, nbytes=0, err=0.0)
            for n in ("dq", "dkv")}
     lib_ms = 0.0
 
-    def sdpa_bwd_ms(q, k, v, g, mask=None):
-        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
-        return cuda_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), g,
-                                                   retain_graph=True))
-
-    for b, h, sq, skv, d in BWD_SHAPES:
-        shape = (b, h, sq, skv, d)
-        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
-        k, v = (torch.randn((b, h, skv, d), generator=gen, device="cuda")
-                for _ in range(2))
-        g = torch.randn((b, h, sq, d), generator=gen, device="cuda")
-        q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
-        s = d ** -0.5
-        with torch.no_grad():
-            o, lse = att.flash_attention_fwd(q, k, v)
-        delta = (o.float() * g.float()).sum(-1)
-        dq = att.flash_bwd_dq(q, k, v, g, lse, delta, s)
-        dk, dv = att.flash_bwd_dkv(q, k, v, g, lse, delta, s)
-        dq_r = att.flash_bwd_dq_reference(q, k, v, g, lse, delta, s)
-        dk_r, dv_r = att.flash_bwd_dkv_reference(q, k, v, g, lse, delta, s)
-        torch.cuda.synchronize()
-        e_dq = bwd_error(dq, dq_r, f"flash_bwd_dq {shape} dq")
-        e_dk = bwd_error(dk, dk_r, f"flash_bwd_dkv {shape} dk")
-        e_dv = bwd_error(dv, dv_r, f"flash_bwd_dkv {shape} dv")
-        t = dict(
-            dq=cuda_ms(lambda: att.flash_bwd_dq(q, k, v, g, lse, delta, s)),
-            dkv=cuda_ms(lambda: att.flash_bwd_dkv(q, k, v, g, lse, delta, s)),
-            dq_p=cuda_ms(lambda: att.flash_bwd_dq_reference(
-                q, k, v, g, lse, delta, s), reps=5),
-            dkv_p=cuda_ms(lambda: att.flash_bwd_dkv_reference(
-                q, k, v, g, lse, delta, s), reps=5),
-            lib=sdpa_bwd_ms(q, k, v, g))
+    def flash_case(shape, timed):
+        nonlocal lib_ms
+        r = flash_bwd_case(shape, gen)
+        e, e_lib, t = r["err"], r["sdpa_err"], r["ms"]
+        if timed:
+            for name in ("dq", "dk", "dv"):
+                if e[name] > 2 * e_lib[name]:
+                    raise AssertionError(
+                        f"flash_bwd {shape} {name}: error {e[name]:.3e} over "
+                        f"twice SDPA backward's {e_lib[name]:.3e}")
         work = attention_bwd_work(*shape)
-        for n, err in (("dq", e_dq[0]), ("dkv", max(e_dk[0], e_dv[0]))):
+        for n, err in (("dq", e["dq"]), ("dkv", max(e["dk"], e["dv"]))):
             a = acc[n]
-            a["ms"] += t[n]
-            a["plain_ms"] += t[n + "_p"]
-            a["ops"] += work[n][0]
-            a["nbytes"] += work[n][1]
             a["err"] = max(a["err"], err)
-        lib_ms += t["lib"]
+            if timed:
+                a["ms"] += t[n]
+                a["plain_ms"] += t[n + "_p"]
+                a["ops"] += work[n][0]
+                a["nbytes"] += work[n][1]
+        if timed:
+            lib_ms += t["lib"]
         b_dq, b_dkv = (bound(*work[n], "bf16") for n in ("dq", "dkv"))
-        log(f"flash_bwd {shape}: dq err {e_dq[0]:.3e} (max |dq| "
-            f"{e_dq[1]:.3e}), dk err {e_dk[0]:.3e} ({e_dk[1]:.3e}), dv err "
-            f"{e_dv[0]:.3e} ({e_dv[1]:.3e}), tol {tol}; dq kernel "
-            f"{t['dq']:.3f} ms (plain {t['dq_p']:.3f}, bound {b_dq[0]:.4f} "
-            f"{b_dq[1]}), dkv kernel {t['dkv']:.3f} ms (plain "
-            f"{t['dkv_p']:.3f}, bound {b_dkv[0]:.4f} {b_dkv[1]}); the two "
-            f"kernels {t['dq'] + t['dkv']:.3f} ms against sdpa backward "
-            f"(dq, dk, dv together) {t['lib']:.3f} ms")
-        del dq_r, dk_r, dv_r
-    for n in ("dq", "dkv"):
-        a = acc[n]
-        t_b, by = bound(a["ops"], a["nbytes"], "bf16")
-        results[f"flash_bwd_{n}"] = dict(
-            max_abs_err=a["err"], tolerance=tol, ms=a["ms"],
-            plain_ms=a["plain_ms"], bound_ms=t_b, bound_by=by,
-            library_ms=lib_ms,
-            library="F.scaled_dot_product_attention backward: dq, dk and dv "
-                    "together, the same time for both kernels of the pair",
-            timed=f"sum over the {len(BWD_SHAPES)} shapes (B, H, Sq, Sk, D) "
-                  f"{BWD_SHAPES}")
+        tf = {n: work[n][0] / t[n] / 1e9 for n in ("dq", "dkv")}
+        log(f"flash_bwd {shape}{'' if timed else ' (check only)'}: errors "
+            f"(max abs; SDPA backward's; max |ref|) "
+            + ", ".join(f"{n} {e[n]:.3e}; {e_lib[n]:.3e}; "
+                        f"{r['ref_max'][n]:.3e}" for n in ("dq", "dk", "dv"))
+            + f"; bit-identical twice; dq kernel {t['dq']:.3f} ms "
+            f"({tf['dq']:.1f} TFLOP/s; plain {t['dq_p']:.3f}, bound "
+            f"{b_dq[0]:.4f} {b_dq[1]}), dkv kernel {t['dkv']:.3f} ms "
+            f"({tf['dkv']:.1f} TFLOP/s; plain {t['dkv_p']:.3f}, bound "
+            f"{b_dkv[0]:.4f} {b_dkv[1]}); the two kernels "
+            f"{t['dq'] + t['dkv']:.3f} ms against sdpa backward (dq, dk, dv "
+            f"together) {t['lib']:.3f} ms")
+    for shape in BWD_SHAPES:
+        flash_case(shape, True)
 
     # grid-bias pair at SAM-H's global blocks, bias factors of the size
-    # SAM's rel-pos tables give
+    # SAM's rel-pos tables give (drawn right after the timed shapes', so its
+    # inputs do not depend on the check shapes)
+    gb_tol = ("2^-8*|ref| + 1e-3*max|ref| (one bf16 rounding of the output, "
+              "f32 sums in another order)")
     b, h, sq, d = GB_SHAPE
     kh, kw = GB_GRID
     q, k, v, g = (torch.randn(GB_SHAPE, generator=gen, device="cuda")
@@ -493,13 +573,13 @@ def phase_bwd_kernels(results):
     ref_dkv = att.grid_bias_bwd_dkv_reference(*args)
     torch.cuda.synchronize()
     errs = {
-        "dq": bwd_error(dq, ref_dq[0], "flash_gb_bwd_dq dq"),
-        "dbias_h": bwd_error(dbh, ref_dq[1], "flash_gb_bwd_dq dbias_h",
-                             bf16_out=False),
-        "dbias_w": bwd_error(dbw, ref_dq[2], "flash_gb_bwd_dq dbias_w",
-                             bf16_out=False),
-        "dk": bwd_error(dk, ref_dkv[0], "flash_gb_bwd_dkv dk"),
-        "dv": bwd_error(dv, ref_dkv[1], "flash_gb_bwd_dkv dv")}
+        "dq": gb_bwd_error(dq, ref_dq[0], "flash_gb_bwd_dq dq"),
+        "dbias_h": gb_bwd_error(dbh, ref_dq[1], "flash_gb_bwd_dq dbias_h",
+                                bf16_out=False),
+        "dbias_w": gb_bwd_error(dbw, ref_dq[2], "flash_gb_bwd_dq dbias_w",
+                                bf16_out=False),
+        "dk": gb_bwd_error(dk, ref_dkv[0], "flash_gb_bwd_dkv dk"),
+        "dv": gb_bwd_error(dv, ref_dkv[1], "flash_gb_bwd_dkv dv")}
     del ref_dq, ref_dkv
     mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
         b, h, sq, sq).to(torch.bfloat16)
@@ -515,7 +595,7 @@ def phase_bwd_kernels(results):
     b_dq, b_dkv = (bound(*work[n], "bf16") for n in ("dq", "dkv"))
     log(f"flash_gb_bwd {GB_SHAPE} grid {GB_GRID}: errors (max abs, max "
         f"|ref|) { {n: (f'{e[0]:.3e}', f'{e[1]:.3e}') for n, e in errs.items()} }"
-        f", tol {tol}, dbias 2e-4*max|ref| (f32 out); dq kernel "
+        f", tol {gb_tol}, dbias 2e-4*max|ref| (f32 out); dq kernel "
         f"{t['dq']:.3f} ms (plain {t['dq_p']:.3f}, bound {b_dq[0]:.4f} "
         f"{b_dq[1]}), dkv kernel {t['dkv']:.3f} ms (plain {t['dkv_p']:.3f}, "
         f"bound {b_dkv[0]:.4f} {b_dkv[1]}); the two kernels "
@@ -527,13 +607,28 @@ def phase_bwd_kernels(results):
            "the same time for both kernels of the pair")
     results["flash_gb_bwd_dq"] = dict(
         max_abs_err=max(errs[n][0] for n in ("dq", "dbias_h", "dbias_w")),
-        tolerance=tol + "; dbias: 2e-4*max|ref| (f32 out)", ms=t["dq"],
+        tolerance=gb_tol + "; dbias: 2e-4*max|ref| (f32 out)", ms=t["dq"],
         plain_ms=t["dq_p"], bound_ms=b_dq[0], bound_by=b_dq[1],
         library_ms=t["lib"], library=lib)
     results["flash_gb_bwd_dkv"] = dict(
-        max_abs_err=max(errs["dk"][0], errs["dv"][0]), tolerance=tol,
+        max_abs_err=max(errs["dk"][0], errs["dv"][0]), tolerance=gb_tol,
         ms=t["dkv"], plain_ms=t["dkv_p"], bound_ms=b_dkv[0],
         bound_by=b_dkv[1], library_ms=t["lib"], library=lib)
+
+    for shape in BWD_CHECK_SHAPES:
+        flash_case(shape, False)
+    for n in ("dq", "dkv"):
+        a = acc[n]
+        t_b, by = bound(a["ops"], a["nbytes"], "bf16")
+        results[f"flash_bwd_{n}"] = dict(
+            max_abs_err=a["err"], tolerance=tol, ms=a["ms"],
+            plain_ms=a["plain_ms"], bound_ms=t_b, bound_by=by,
+            library_ms=lib_ms,
+            library="F.scaled_dot_product_attention backward: dq, dk and dv "
+                    "together, the same time for both kernels of the pair",
+            timed=f"times summed over the {len(BWD_SHAPES)} shapes (B, H, "
+                  f"Sq, Sk, D) {BWD_SHAPES}; errors also over "
+                  f"{BWD_CHECK_SHAPES}")
 
 
 def _torus(n_major=32, n_minor=32, R=0.25, r=0.08):
@@ -1146,6 +1241,45 @@ def phase_dit(results, steps=30, batch=8, cond_len=257):
         raise AssertionError("DiT-base: the fixed-batch loss did not fall")
     results["dit_launches"] = counts
     results["dit_step_sec"] = med
+
+    # where a step's time goes: each of its three calls (the loss forward,
+    # the backward, AdamW's update) and the whole step behind a ~0.5-s
+    # stream spin, which lets the host queue a call's work before the device
+    # reaches it. The host's seconds to return (0.5 s or more: the call
+    # waited for the device) and the device's seconds from the spin's end to
+    # the call's last launch (its busy time, unless the host waited inside
+    # the call and left gaps); median of 3.
+    def behind_spin(fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50 * SPIN_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        b.record()
+        b.synchronize()
+        return host, a.elapsed_time(b) / 1e3
+
+    split = {}
+    for _ in range(3):
+        opt.zero_grad(set_to_none=True)
+        box = {}
+        for name, fn in (
+                ("loss", lambda: box.update(loss=flow_matching_loss(
+                    model, x0, cond, gen))),
+                ("backward", lambda: box["loss"].backward()),
+                ("adamw", opt.step),
+                ("step", lambda: train_step(model, opt, x0, cond, gen))):
+            split.setdefault(name, []).append(behind_spin(fn))
+    split = {n: tuple(sorted(x[i] for x in v)[1] for i in (0, 1))
+             for n, v in split.items()}
+    busy = sum(split[n][1] for n in ("loss", "backward", "adamw"))
+    log("DiT-base train_step behind a 0.5-s spin, (host s to return, device "
+        "s) median of 3: " + ", ".join(f"{n} ({h:.4f}, {d:.4f})"
+                                       for n, (h, d) in split.items())
+        + f"; the three calls keep the device busy {busy:.4f} s, "
+        f"{busy / med:.1%} of the {med:.4f}-s median step")
 
     # sample at base: 4 Euler steps, guidance 5 (one 2B-batch forward each)
     n_obj = 6

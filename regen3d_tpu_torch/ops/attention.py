@@ -6,7 +6,8 @@ q, k, v are (B, H, S, D). Both ops are ``torch.autograd.Function``s.
 
 * :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu`` forward and,
   under autograd, ``csrc/flash_bwd.cu``'s dq and dkv kernels backward
-  (bf16 in and out, f32 accumulation, D ∈ {16, 32, 64, 128}).
+  (bf16 in and out, tensor cores with f32 accumulation, p and scale·ds
+  rounded to bf16 before the second products, D ∈ {16, 32, 64, 128}).
 * :func:`flash_attention_grid_bias_fwd` launches ``csrc/flash_gb_fwd.cu``
   forward and the grid-bias instances of ``csrc/flash_bwd.cu``'s dq and
   dkv kernels backward (the same with SAM's factored key-grid bias, the dq
@@ -99,6 +100,21 @@ def flash_bwd_dkv_reference(q, k, v, g, lse, delta, scale: float
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p, g.float())
     return dk, dv
+
+
+def flash_bwd_abs_terms_reference(q, k, v, g, lse, delta, scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Σ|terms| of each element of dq, dk and dv in f32: the plain products
+    on magnitudes, Σ_k |scale·ds|·|k|, Σ_q |scale·ds|·|q| and Σ_q p·|g|. The
+    dq and dkv kernels round p and scale·ds to bf16 before these products,
+    which moves each term by a fraction of its magnitude; chip_smoke.py's
+    bound on the kernels is a fraction of these sums."""
+    p, ds = _probs_and_ds(q, k, v, g, lse, delta, scale)
+    ds = (ds * scale).abs()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, g.float().abs()))
 
 
 def grid_bias_bwd_dq_reference(q, k, v, bias_h, bias_w, kw: int, g, lse,

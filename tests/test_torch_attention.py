@@ -6,13 +6,17 @@ with the dq and dkv kernels' plain versions) against ``jax.grad`` through
 the Pallas custom VJP and against torch autograd of ``attention_reference``,
 atol = rtol = 5e-4 as the JAX package's own gradient test; the same for
 the grid-bias op over all five arguments, dbias_h and dbias_w compared apart
-from dq. Also the kernel wrapper's refusals on the CPU side."""
+from dq. Also the kernel wrapper's refusals on the CPU side, and the bound
+``chip_smoke.bwd_error`` holds the card's flash backward kernels to, pinned
+from both sides with a torch model of their bf16 rounding."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from regen3d_tpu.ops.attention import flash_attention as jax_flash
 from regen3d_tpu.ops.attention import flash_attention_grid_bias
@@ -22,6 +26,7 @@ from regen3d_tpu_torch.ops.attention import (
     flash_attention_fwd,
     flash_attention_grid_bias as port_grid_bias,
     flash_attention_grid_bias_fwd,
+    flash_bwd_abs_terms_reference,
     flash_bwd_dkv_reference,
     flash_bwd_dq_reference,
     grid_bias_bwd_dq_reference,
@@ -165,3 +170,80 @@ def test_grid_bias_backward_matches_torch_autograd_of_reference():
     for a, t, name in zip(got, args, ["q", "k", "v", "bias_h", "bias_w"]):
         np.testing.assert_allclose(a.numpy(), t.grad.numpy(), atol=5e-4,
                                    rtol=5e-4, err_msg=name)
+
+
+# (B, H, Sq, Sk, D): four 64-key tiles and a ragged 129-key tail; 11 queries
+# over 200 keys, as few terms in dk and dv as SAM's decoder gives them
+BOUND_SHAPES = [(1, 2, 256, 256, 64), (1, 2, 256, 129, 32),
+                (1, 2, 11, 200, 16)]
+
+
+def _bwd_problem(shape, seed):
+    """bf16 q, k, v, g; the f32 lse and delta the backward kernels get."""
+    rng = np.random.default_rng(seed)
+    b, h, sq, sk, d = shape
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, n, d))
+                                   .astype(np.float32)).to(torch.bfloat16)
+                  for n in (sq, sk, sk, sq))
+    o, lse = attention_reference(q.float(), k.float(), v.float())
+    delta = (o.to(torch.bfloat16).float() * g.float()).sum(-1)
+    return q, k, v, g, lse, delta, d ** -0.5
+
+
+def _rounded_backward(q, k, v, g, lse, delta, scale, fault=None):
+    """(dq, dk, dv) as the tensor-core kernels round them: logits and sums
+    in f64 (another summation order than the f32 plain versions), p and
+    scale·ds rounded to bf16 before the second products, the outputs to
+    bf16. ``fault`` makes a broken kernel: "drop_key_tile" leaves keys
+    64-127 out of dq, "drop_query_tile" queries 64-127 out of dk,
+    "scale_twice" scales ds twice."""
+    f64 = [t.double() for t in (q, k, v, g)]
+    q, k, v, g = f64
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    ds = p * (dp - delta.double()[..., None]) * scale
+    if fault == "scale_twice":
+        ds = ds * scale
+    p, ds = (t.to(torch.bfloat16).double() for t in (p, ds))
+    ds_q, ds_k = ds.clone(), ds.clone()
+    if fault == "drop_key_tile":
+        ds_q[..., 64:128] = 0
+    if fault == "drop_query_tile":
+        ds_k[..., 64:128, :] = 0
+    out = (torch.einsum("bhqk,bhkd->bhqd", ds_q, k),
+           torch.einsum("bhqk,bhqd->bhkd", ds_k, q),
+           torch.einsum("bhqk,bhqd->bhkd", p, g))
+    return [t.to(torch.bfloat16) for t in out]
+
+
+def _plain_and_terms(args):
+    refs = (flash_bwd_dq_reference(*args),) + flash_bwd_dkv_reference(*args)
+    return refs, flash_bwd_abs_terms_reference(*args)
+
+
+@pytest.mark.parametrize("shape", BOUND_SHAPES)
+def test_backward_bound_admits_the_kernels_rounding(shape):
+    """A kernel that rounds as the tensor-core kernels do passes the card's
+    bound against the f32 plain versions, at every output; Σ|terms| is at
+    least |Σ terms| elementwise."""
+    args = _bwd_problem(shape, sum(shape))
+    refs, terms = _plain_and_terms(args)
+    for name, got, ref, term in zip(("dq", "dk", "dv"),
+                                    _rounded_backward(*args), refs, terms):
+        assert bool((term >= ref.abs() * (1 - 1e-5) - 1e-7).all()), name
+        chip_smoke.bwd_error(got, ref, term, f"{shape} {name}")
+
+
+@pytest.mark.parametrize("fault,out", [("drop_key_tile", 0),
+                                       ("drop_query_tile", 1),
+                                       ("scale_twice", 0),
+                                       ("scale_twice", 1)])
+@pytest.mark.parametrize("shape", BOUND_SHAPES[:2])
+def test_backward_bound_refuses_a_broken_kernel(shape, fault, out):
+    """A dropped 64-row tile or a scale applied twice fails the bound."""
+    args = _bwd_problem(shape, sum(shape))
+    refs, terms = _plain_and_terms(args)
+    got = _rounded_backward(*args, fault=fault)
+    with pytest.raises(AssertionError, match="over its bound"):
+        chip_smoke.bwd_error(got[out], refs[out], terms[out], fault)
