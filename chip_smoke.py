@@ -15,9 +15,10 @@ Phases, each reported on one line:
    (bytes over 3.35 TB/s or operations over the peak rate of their type);
    then the four backward kernels (flash dq and dkv at DiT-base's self and
    cross shapes and a ragged-query shape, timed, and at the other head dims,
-   checked; the grid-bias pair at SAM-H's global blocks) with a non-zero
-   upstream gradient, beside SDPA's backward and its errors, two launches
-   of each flash kernel compared bit for bit;
+   checked; the grid-bias pair at SAM-H's global blocks, timed, and at the
+   small SAM's 32 × 32 key grid and a 48 × 48 one, checked) with a
+   non-zero upstream gradient, beside SDPA's backward and its errors, two
+   launches of each kernel compared bit for bit;
 3. scene_step at the full VGGT-1B width and depth (random weights from a
    seed), 2 frames and 8 objects, checked finite and, on a small config,
    against the same step on the CPU's plain versions;
@@ -43,7 +44,8 @@ Phases, each reported on one line:
 7. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
-   times).
+   times), and one more SAM-H VJP under torch.profiler, split into its ten
+   device operations with the most time.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the launches that compare a kernel with its plain version are not
@@ -76,6 +78,10 @@ FLASH_SHAPES = [(2, 16, 1370, 1370, 64), (2, 16, 1374, 1374, 64),
                 (12, 16, 512, 512, 64), (12, 16, 512, 257, 64)]
 # SAM-H's global blocks: (B, H, S, D) with a 64 × 64 key grid
 GB_SHAPE, GB_GRID = (1, 16, 4096, 80), (64, 64)
+# the grid-bias backward pair's other grids, checked (untimed): the small
+# SAM's global block (32 × 32, two key-grid rows per 64-key tile, the
+# dbias kernel's shared-slab policy) and a kw that does not divide 64
+GB_BWD_CHECKS = [((2, 2, 1024, 80), (32, 32)), ((1, 2, 2304, 80), (48, 48))]
 # (B, H, Sq, Sk, D) of the backward kernels: DiT-base's self- and
 # cross-attention at B = 8 (257 keys is a ragged tail) and a ragged-query
 # shape (1374 = 21·64 + 30) for the dkv kernel's masking
@@ -182,21 +188,45 @@ def bwd_error(got, ref, terms, name):
     return float(err.max()), ref_max
 
 
-def gb_bwd_error(got, ref, name, bf16_out=True):
-    """(max abs error, max |ref|) of a grid-bias gradient against its plain
-    version; raises over the bound. The bound is 2⁻⁸·|ref| for one bf16
-    rounding of a bf16 output, plus f32 summation-order noise over up to a
-    few thousand terms in another order and the exp's last bits, 1e-3 of the
-    largest |ref| (2e-4 for the f32 bias gradients, which are not
-    rounded)."""
+def gb_bwd_error(got, ref, name, terms=None):
+    """(max abs error, max |ref|) of a grid-bias gradient against its f32
+    plain version; raises over the bound. dq, dk and dv, with ``terms``
+    their Σ|terms| (ops.attention.grid_bias_bwd_abs_terms_reference), take
+    bwd_error's bound: the tensor-core pair rounds p and scale·ds to bf16
+    once before the second products, as the flash pair does. The f32 bias
+    gradients (``terms`` None) are sums of the unrounded f32 ds over a
+    key-grid row or column, in another order than the plain version's and
+    with the exp's last bits: 2e-4·max|ref|. A bias gradient moved by one
+    grid row fails that by orders of magnitude."""
+    if terms is not None:
+        return bwd_error(got, ref, terms, name)
     ref_max = float(ref.abs().max())
     err = (got.float() - ref).abs()
-    tol = (2.0 ** -8 * ref.abs() + 1e-3 * ref_max) if bf16_out \
-        else 2e-4 * ref_max
+    tol = 2e-4 * ref_max
     if not bool((err <= tol).all()):
         raise AssertionError(f"{name}: error {float(err.max()):.3e} over its "
-                             f"bound (max |ref| {ref_max:.3e})")
+                             f"bound, {float(err.max()) / tol:.2f}× at worst "
+                             f"(max |ref| {ref_max:.3e})")
     return float(err.max()), ref_max
+
+
+def device_top(prof, n):
+    """(total ms, [(ms, name, launches)] of the n largest) of the device
+    time of each kernel (or copy) in a torch.profiler window, by name, names
+    cut to 80 characters. The CPU-side operations that launched them are
+    left out: their self device time is their kernels' again."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, e.key[:80], e.count))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows[:n]
 
 
 def log(msg: str) -> None:
@@ -243,8 +273,8 @@ def phase_device(kernels):
     for name, text in kernels.BUILD_LOG.items():
         fn = ""   # the kernel (and head dim) ptxas is reporting on
         for line in text.splitlines():
-            m = re.search(r"entry function '.*?([A-Za-z_]+_kernel)(ILi(\d+)E)?",
-                          line)
+            m = re.search(r"entry function '.*?([A-Za-z_]+_kernel)"
+                          r"(IL[bi](\d+)E)?", line)
             if m:
                 fn = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
             elif "registers" in line or "spill" in line:
@@ -493,16 +523,82 @@ def flash_bwd_case(shape, gen):
     return out
 
 
+def gb_bwd_case(shape, grid, gen, timed):
+    """The grid-bias dq and dkv kernels at one (B, H, S, D) and (kh, kw) key
+    grid, with a non-zero upstream gradient and bias factors of the size
+    SAM's rel-pos tables give: dq, dk and dv under bwd_error's bound with
+    the grid-bias Σ|terms| and at most twice the error of SDPA's backward
+    (given the (S, S) bias in bf16) against the same f32 plain versions, the
+    f32 bias gradients under 2e-4·max|ref|, a second launch of each kernel
+    compared bit for bit; if ``timed``, the times of the kernels, the plain
+    versions and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from regen3d_tpu_torch.ops import attention as att
+
+    b, h, s, d = shape
+    kh, kw = grid
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    bias_h = 0.5 * torch.randn((b, h, s, kh), generator=gen, device="cuda")
+    bias_w = 0.5 * torch.randn((b, h, s, kw), generator=gen, device="cuda")
+    with torch.no_grad():
+        o, lse = att.flash_attention_grid_bias_fwd(q, k, v, bias_h, bias_w,
+                                                   kw)
+    delta = (o.float() * g.float()).sum(-1)
+    args = (q, k, v, bias_h, bias_w, kw, g, lse, delta, d ** -0.5)
+    got = att.grid_bias_bwd_dq(*args) + att.grid_bias_bwd_dkv(*args)
+    again = att.grid_bias_bwd_dq(*args) + att.grid_bias_bwd_dkv(*args)
+    refs = att.grid_bias_bwd_dq_reference(*args) + \
+        att.grid_bias_bwd_dkv_reference(*args)
+    terms = dict(zip(("dq", "dk", "dv"),
+                     att.grid_bias_bwd_abs_terms_reference(*args)))
+    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
+        b, h, s, s).to(torch.bfloat16)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask),
+        (qr, kr, vr), g)))
+    torch.cuda.synchronize()
+    out = dict(err={}, ref_max={}, sdpa_err={})
+    for name, x, x2, ref in zip(("dq", "dbias_h", "dbias_w", "dk", "dv"),
+                                got, again, refs):
+        what = (f"flash_gb_bwd_{'dkv' if name in ('dk', 'dv') else 'dq'} "
+                f"{shape} grid {grid} {name}")
+        if not torch.equal(x, x2):
+            raise AssertionError(f"{what}: two launches on the same inputs "
+                                 f"differ")
+        out["err"][name], out["ref_max"][name] = gb_bwd_error(
+            x, ref, what, terms.get(name))
+        if name in lib:
+            e_lib = float((lib[name].float() - ref).abs().max())
+            out["sdpa_err"][name] = e_lib
+            if out["err"][name] > 2 * e_lib:
+                raise AssertionError(f"{what}: error {out['err'][name]:.3e} "
+                                     f"over twice SDPA backward's "
+                                     f"{e_lib:.3e}")
+    del refs, terms, lib, qr, kr, vr
+    if timed:
+        out["ms"] = dict(
+            dq=cuda_ms(lambda: att.grid_bias_bwd_dq(*args)),
+            dkv=cuda_ms(lambda: att.grid_bias_bwd_dkv(*args)),
+            dq_p=cuda_ms(lambda: att.grid_bias_bwd_dq_reference(*args),
+                         reps=3),
+            dkv_p=cuda_ms(lambda: att.grid_bias_bwd_dkv_reference(*args),
+                          reps=3),
+            lib=sdpa_bwd_ms(q, k, v, g, mask))
+    return out
+
+
 def phase_bwd_kernels(results):
     """The four backward kernels against their plain versions, with a
     non-zero upstream gradient g: flash dq and dkv at the DiT-base shapes and
     a ragged-query shape (timed, beside the backward of
     F.scaled_dot_product_attention, which computes dq, dk and dv together)
     and at the other head dims (checked), the grid-bias pair at SAM-H's
-    global blocks (non-zero bias factors)."""
+    global blocks (timed) and at two other key grids (checked)."""
     import torch
-
-    from regen3d_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     tol = ("elementwise 2^-8*(|ref| + sum|terms|) + 1e-5*max|ref| (p and "
@@ -550,73 +646,50 @@ def phase_bwd_kernels(results):
     for shape in BWD_SHAPES:
         flash_case(shape, True)
 
-    # grid-bias pair at SAM-H's global blocks, bias factors of the size
-    # SAM's rel-pos tables give (drawn right after the timed shapes', so its
-    # inputs do not depend on the check shapes)
-    gb_tol = ("2^-8*|ref| + 1e-3*max|ref| (one bf16 rounding of the output, "
-              "f32 sums in another order)")
-    b, h, sq, d = GB_SHAPE
-    kh, kw = GB_GRID
-    q, k, v, g = (torch.randn(GB_SHAPE, generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(4))
-    bias_h = 0.5 * torch.randn((b, h, sq, kh), generator=gen, device="cuda")
-    bias_w = 0.5 * torch.randn((b, h, sq, kw), generator=gen, device="cuda")
-    s = d ** -0.5
-    with torch.no_grad():
-        o, lse = att.flash_attention_grid_bias_fwd(q, k, v, bias_h, bias_w,
-                                                   kw)
-    delta = (o.float() * g.float()).sum(-1)
-    args = (q, k, v, bias_h, bias_w, kw, g, lse, delta, s)
-    dq, dbh, dbw = att.grid_bias_bwd_dq(*args)
-    dk, dv = att.grid_bias_bwd_dkv(*args)
-    ref_dq = att.grid_bias_bwd_dq_reference(*args)
-    ref_dkv = att.grid_bias_bwd_dkv_reference(*args)
-    torch.cuda.synchronize()
-    errs = {
-        "dq": gb_bwd_error(dq, ref_dq[0], "flash_gb_bwd_dq dq"),
-        "dbias_h": gb_bwd_error(dbh, ref_dq[1], "flash_gb_bwd_dq dbias_h",
-                                bf16_out=False),
-        "dbias_w": gb_bwd_error(dbw, ref_dq[2], "flash_gb_bwd_dq dbias_w",
-                                bf16_out=False),
-        "dk": gb_bwd_error(dk, ref_dkv[0], "flash_gb_bwd_dkv dk"),
-        "dv": gb_bwd_error(dv, ref_dkv[1], "flash_gb_bwd_dkv dv")}
-    del ref_dq, ref_dkv
-    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
-        b, h, sq, sq).to(torch.bfloat16)
-    t = dict(dq=cuda_ms(lambda: att.grid_bias_bwd_dq(*args)),
-             dkv=cuda_ms(lambda: att.grid_bias_bwd_dkv(*args)),
-             dq_p=cuda_ms(lambda: att.grid_bias_bwd_dq_reference(*args),
-                          reps=3),
-             dkv_p=cuda_ms(lambda: att.grid_bias_bwd_dkv_reference(*args),
-                           reps=3),
-             lib=sdpa_bwd_ms(q, k, v, g, mask))
-    del mask
-    work = attention_bwd_work(b, h, sq, sq, d, kh + kw)
-    b_dq, b_dkv = (bound(*work[n], "bf16") for n in ("dq", "dkv"))
-    log(f"flash_gb_bwd {GB_SHAPE} grid {GB_GRID}: errors (max abs, max "
-        f"|ref|) { {n: (f'{e[0]:.3e}', f'{e[1]:.3e}') for n, e in errs.items()} }"
-        f", tol {gb_tol}, dbias 2e-4*max|ref| (f32 out); dq kernel "
-        f"{t['dq']:.3f} ms (plain {t['dq_p']:.3f}, bound {b_dq[0]:.4f} "
-        f"{b_dq[1]}), dkv kernel {t['dkv']:.3f} ms (plain {t['dkv_p']:.3f}, "
-        f"bound {b_dkv[0]:.4f} {b_dkv[1]}); the two kernels "
-        f"{t['dq'] + t['dkv']:.3f} ms against sdpa backward with the bf16 "
-        f"bias built beforehand (untimed; dq, dk, dv together, no bias "
-        f"gradient) {t['lib']:.3f} ms")
-    lib = ("F.scaled_dot_product_attention backward with the (S, S) bf16 "
-           "bias built beforehand: dq, dk and dv together, no bias gradient; "
-           "the same time for both kernels of the pair")
-    results["flash_gb_bwd_dq"] = dict(
-        max_abs_err=max(errs[n][0] for n in ("dq", "dbias_h", "dbias_w")),
-        tolerance=gb_tol + "; dbias: 2e-4*max|ref| (f32 out)", ms=t["dq"],
-        plain_ms=t["dq_p"], bound_ms=b_dq[0], bound_by=b_dq[1],
-        library_ms=t["lib"], library=lib)
-    results["flash_gb_bwd_dkv"] = dict(
-        max_abs_err=max(errs["dk"][0], errs["dv"][0]), tolerance=gb_tol,
-        ms=t["dkv"], plain_ms=t["dkv_p"], bound_ms=b_dkv[0],
-        bound_by=b_dkv[1], library_ms=t["lib"], library=lib)
+    # the grid-bias pair at SAM-H's global blocks, drawn right after the
+    # timed flash shapes, so its inputs do not depend on the check shapes
+    gb_tol = ("dq, dk, dv: elementwise 2^-8*(|ref| + sum|terms|) + "
+              "1e-5*max|ref| (p and scale*ds rounded to bf16 once before "
+              "the second products, the output once), each max error at "
+              "most 2x SDPA backward's against the same plain version; "
+              "dbias: 2e-4*max|ref| (f32 sums of the unrounded ds); two "
+              "launches bit-identical")
+    worst = {}
 
+    def gb_case(shape, grid, timed):
+        r = gb_bwd_case(shape, grid, gen, timed)
+        for n, e in r["err"].items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        errs = ", ".join(
+            f"{n} {e:.3e}"
+            + (f"; {r['sdpa_err'][n]:.3e}" if n in r["sdpa_err"] else "")
+            + f"; {r['ref_max'][n]:.3e}" for n, e in r["err"].items())
+        line = (f"flash_gb_bwd {shape} grid {grid}"
+                f"{'' if timed else ' (check only)'}: errors (max abs; "
+                f"SDPA backward's; max |ref|) {errs}; bit-identical twice")
+        if timed:
+            t = r["ms"]
+            b, h, s, d = shape
+            work = attention_bwd_work(b, h, s, s, d, sum(grid))
+            b_dq, b_dkv = (bound(*work[n], "bf16") for n in ("dq", "dkv"))
+            tf = {n: work[n][0] / t[n] / 1e9 for n in ("dq", "dkv")}
+            line += (f"; dq kernel {t['dq']:.3f} ms ({tf['dq']:.1f} TFLOP/s;"
+                     f" plain {t['dq_p']:.3f}, bound {b_dq[0]:.4f} "
+                     f"{b_dq[1]}), dkv kernel {t['dkv']:.3f} ms "
+                     f"({tf['dkv']:.1f} TFLOP/s; plain {t['dkv_p']:.3f}, "
+                     f"bound {b_dkv[0]:.4f} {b_dkv[1]}); the two kernels "
+                     f"{t['dq'] + t['dkv']:.3f} ms against sdpa backward "
+                     f"with the bf16 bias built beforehand (untimed; dq, dk, "
+                     f"dv together, no bias gradient) {t['lib']:.3f} ms")
+            r["bound"] = dict(dq=b_dq, dkv=b_dkv)
+        log(line)
+        return r
+
+    timed = gb_case(GB_SHAPE, GB_GRID, True)
     for shape in BWD_CHECK_SHAPES:
         flash_case(shape, False)
+    for shape, grid in GB_BWD_CHECKS:
+        gb_case(shape, grid, False)
     for n in ("dq", "dkv"):
         a = acc[n]
         t_b, by = bound(a["ops"], a["nbytes"], "bf16")
@@ -629,6 +702,19 @@ def phase_bwd_kernels(results):
             timed=f"times summed over the {len(BWD_SHAPES)} shapes (B, H, "
                   f"Sq, Sk, D) {BWD_SHAPES}; errors also over "
                   f"{BWD_CHECK_SHAPES}")
+    t = timed["ms"]
+    lib = ("F.scaled_dot_product_attention backward with the (S, S) bf16 "
+           "bias built beforehand: dq, dk and dv together, no bias gradient; "
+           "the same time for both kernels of the pair")
+    grids = (f"timed at {GB_SHAPE} grid {GB_GRID}; errors also over "
+             f"{GB_BWD_CHECKS}")
+    for n, outs in (("dq", ("dq", "dbias_h", "dbias_w")),
+                    ("dkv", ("dk", "dv"))):
+        results[f"flash_gb_bwd_{n}"] = dict(
+            max_abs_err=max(worst[o] for o in outs), tolerance=gb_tol,
+            ms=t[n], plain_ms=t[n + "_p"], bound_ms=timed["bound"][n][0],
+            bound_by=timed["bound"][n][1], library_ms=t["lib"], library=lib,
+            timed=grids)
 
 
 def _torus(n_major=32, n_minor=32, R=0.25, r=0.08):
@@ -1397,6 +1483,22 @@ def phase_sam_grad(results):
         raise AssertionError(f"SAM-H encoder gradient launches {counts}")
     results["sam_grad_launches"] = counts
     results["sam_grad_sec"] = dt
+
+    # where the VJP's device time goes: one more call under torch.profiler
+    # (after the counts were read), its ten device operations with the most
+    # self time
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        emb = model.encode(img)
+        torch.autograd.grad((emb.float() * cot).sum(), enc_params)
+        torch.cuda.synchronize()
+    total, top = device_top(prof, 10)
+    split = "; ".join(f"{name} {ms:.2f} ms ({ms / total:.1%}, {c}x)"
+                      for ms, name, c in top) if total > 0 else \
+        "no device time recorded"
+    log(f"SAM-H encoder gradient under torch.profiler: {total:.2f} ms of "
+        f"device time; the ten operations with the most: {split}")
 
 
 def main() -> int:

@@ -4,11 +4,11 @@
 // factors, bias gradients and accumulation.
 //
 // Replaces: regen3d_tpu/ops/attention.py::_flash_bwd_dq_kernel and
-// ::_flash_bwd_dkv_kernel (reached through _flash_vjp_bwd) with the
-// tensor-core kernels bwd_dq_kernel and bwd_dkv_kernel, and
-// ::_flash_bwd_gb_dq_kernel and ::_flash_bwd_gb_dkv_kernel (reached through
-// _gb_vjp_bwd) with the CUDA-core kernels gb_bwd_dq_kernel and
-// gb_bwd_dkv_kernel (Pallas, TPU).
+// ::_flash_bwd_dkv_kernel (reached through _flash_vjp_bwd) with
+// bwd_dq_kernel and bwd_dkv_kernel, and ::_flash_bwd_gb_dq_kernel and
+// ::_flash_bwd_gb_dkv_kernel (reached through _gb_vjp_bwd) with
+// gb_bwd_dq_kernel and gb_bwd_dkv_kernel (Pallas, TPU). All four run their
+// products on the tensor cores.
 //
 // All four recompute the probabilities from the forward's row logsumexp, so
 // the (Sq, Sk) matrices never exist in device memory:
@@ -26,9 +26,9 @@
 // values read (q, k, v, g), about 300 operations per byte at DiT-base's
 // self-attention (Sq = Sk = 512, D = 64), the card's balance point, 800 at
 // Sq = Sk = 1374 and more at SAM-H's global blocks ((1, 16, 4096, 80)). So
-// operations bound them, the bf16 tensor cores' rate for the plain pair,
-// except at DiT-base's cross-attention (Sk = 257), where reading and
-// writing the bytes takes slightly longer.
+// operations bound them, the bf16 tensor cores' rate, except at DiT-base's
+// cross-attention (Sk = 257), where reading and writing the bytes takes
+// slightly longer.
 //
 // The plain pair: tensor cores, asynchronous copies, bf16 shared memory.
 // * Gridded as in JAX, no atomics: dq over (batch·head, 64 query rows), dkv
@@ -64,24 +64,24 @@
 //   streamed tile is 32 rows, which keeps the dk and dv accumulators (128
 //   f32 registers a thread) beside s and dp in registers.
 //
-// The grid-bias pair: the CUDA-core kernels of the first port, f32 FMAs in
-// the flash_fwd.cu tiling, bound by the shared-memory loads feeding them.
-// dq: one block per (batch·head, 64-row q tile); K and V stream through
-// shared memory in 64-key tiles; four threads own a query row, each with 16
-// keys of the tile and D/4 dq accumulators in registers. dkv: one block per
-// (batch·head, 64-key tile); Q, g, lse and delta stream in 64-row tiles;
-// four threads own a key row. The grid-bias dq kernel keeps ds unscaled for
-// the bias gradients and scales dq at the end; its dkv kernel scales ds
-// where it forms it. The (S, S) bias never exists: the dq block keeps its
-// 64 rows of bias_h and bias_w in shared memory; the dkv block loads, per q
-// tile, the bias_w rows and only the bias_h columns of the key-grid rows its
-// 64 keys touch, and each score reads bias_h[q, k / kw] and bias_w[q, k % kw]
-// from there (no selector matmuls, which only worked around Mosaic). The
-// bias gradients are sums over keys within one query row: the dq block keeps
-// a row's partial sums in shared memory, next to its ds row, where only the
-// row's four lanes (one warp) touch them, each lane owning the outputs whose
-// index is its lane mod 4. Every dbias element is summed by one thread in a
-// fixed order and written once: no atomics, deterministic, as JAX's is.
+// The grid-bias pair (D = 80): the same design, with the factored bias.
+// * The (S, S) bias never exists. The dq block keeps its 64 rows of bias_h
+//   and bias_w in shared memory; the dkv block streams, with each query
+//   tile, its rows of bias_w and the bias_h columns of the key-grid rows its
+//   64 keys touch. Each f32 element of the s fragment adds
+//   bias_h[q, k / kw] + bias_w[q, k % kw] in fragment order before the
+//   exp2, as the logits do in the JAX kernels (no selector matmuls, which
+//   only worked around Mosaic).
+// * The bias gradients sum the unscaled f32 ds before it is scaled and
+//   rounded to bf16 for ds·k: at kw = 64 (SAM-H) a 64-key tile is one
+//   key-grid row, dbias_h a quad-shuffled row sum of the ds fragment and
+//   dbias_w 32 registers a lane across tiles; any other grid sums ds from a
+//   shared slab. No atomics: each element is summed by one thread in a
+//   fixed order.
+// * A row of 80 bf16 values is ten 16-byte chunks, which the XOR swizzle
+//   cannot permute in place: Tile<80> pads rows to 88 values instead. The
+//   streamed tiles are 64 rows, which keeps dq (40 f32 registers a lane)
+//   or dk and dv (80) beside s and dp.
 //
 // Shared memory passes 48 KB, so the launches opt in with
 // cudaFuncSetAttribute. Head dims: 16, 32, 64 and 128 without a bias, those
@@ -119,6 +119,29 @@ __device__ __forceinline__ int swz(int row, int col) {
   constexpr int MASK = (CPR >= 8 ? 8 : CPR) - 1;
   return row * D + ((((col >> 3) ^ ((row / RPL) & MASK))) << 3) + (col & 7);
 }
+
+// The shared-memory layout of a bf16 tile of rows of D values: its row
+// stride in elements and the offset of (row, col). D = 16, 32, 64, 128:
+// rows of D values with swizzled chunks (swz). D = 80, ten 16-byte chunks,
+// which a power-of-two XOR cannot permute within the row: rows padded to 88
+// values (176 bytes), no XOR. Row r then starts at bank 12·r mod 32, so the
+// eight consecutive rows of one ldmatrix phase cover all 32 banks once, and
+// so do the eight rows × four lanes of a C-fragment store.
+template <int D>
+struct Tile {
+  static constexpr int STRIDE = D;
+  __device__ static __forceinline__ int off(int row, int col) {
+    return swz<D>(row, col);
+  }
+};
+
+template <>
+struct Tile<80> {
+  static constexpr int STRIDE = 88;
+  __device__ static __forceinline__ int off(int row, int col) {
+    return row * STRIDE + col;
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -178,8 +201,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [r0, r0 + ROWS) of a [n][D] bf16 array into a swizzled tile;
-// rows at or past n are zero-filled.
+// Copy rows [r0, r0 + ROWS) of a [n][D] bf16 array into a tile laid out
+// by Tile<D>; rows at or past n are zero-filled.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
                                           int n, int tid) {
@@ -190,7 +213,7 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
     const int i = tid + it * TC_NT;
     const int r = i / CPR, c = i % CPR;
     const bool in = r0 + r < n;
-    cp_async16(tile + swz<D>(r, c * 8),
+    cp_async16(tile + Tile<D>::off(r, c * 8),
                src + (size_t)(in ? r0 + r : 0) * D + c * 8, in);
   }
 }
@@ -199,7 +222,7 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
 template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
                                        int r0, int c0, int lane) {
-  ldsm(a, tile + swz<D>(r0 + (lane & 15), c0 + ((lane >> 4) << 3)));
+  ldsm(a, tile + Tile<D>::off(r0 + (lane & 15), c0 + ((lane >> 4) << 3)));
 }
 
 // The B fragments of two 8-column n-tiles (k 16 deep) from a tile stored
@@ -208,19 +231,19 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
 template <int D>
 __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile,
                                           int n0, int k0, int lane) {
-  ldsm(b, tile + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3),
-                        k0 + (((lane >> 3) & 1) << 3)));
+  ldsm(b, tile + Tile<D>::off(n0 + (lane & 7) + ((lane >> 4) << 3),
+                              k0 + (((lane >> 3) & 1) << 3)));
 }
 
 // The same from a tile stored [k][n] (rows are the product's depth).
 template <int D>
 __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile,
                                           int k0, int n0, int lane) {
-  ldsm_t(b, tile + swz<D>(k0 + (lane & 15), n0 + ((lane >> 4) << 3)));
+  ldsm_t(b, tile + Tile<D>::off(k0 + (lane & 15), n0 + ((lane >> 4) << 3)));
 }
 
 // Write a warp's 16 × D f32 accumulators as bf16 into its rows r0.. of a
-// swizzled tile, then copy those rows to dst rows [g0, g0 + 16) below n with
+// tile, then copy those rows to dst rows [g0, g0 + 16) below n with
 // 16-byte stores.
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
@@ -230,9 +253,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + g4, col)) =
+    *reinterpret_cast<uint32_t*>(tile + Tile<D>::off(r0 + g4, col)) =
         pack_bf16(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(tile + swz<D>(r0 + g4 + 8, col)) =
+    *reinterpret_cast<uint32_t*>(tile + Tile<D>::off(r0 + g4 + 8, col)) =
         pack_bf16(acc[j][2], acc[j][3]);
   }
   __syncwarp();
@@ -244,7 +267,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
     const int r = i / CPR, c = i % CPR;
     if (g0 + r < n)
       *reinterpret_cast<uint4*>(dst + (size_t)(g0 + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz<D>(r0 + r, c * 8));
+          *reinterpret_cast<const uint4*>(tile + Tile<D>::off(r0 + r, c * 8));
   }
 }
 
@@ -539,11 +562,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// The grid-bias pair on the CUDA cores.
+// The grid-bias pair on the tensor cores (D = 80, SAM-H's heads).
 
-constexpr int BQ = 64;            // query rows per tile
-constexpr int BK = 64;            // keys per tile
-constexpr int NT = 256;           // threads: 4 per row
+constexpr int GB_D = 80;
 
 // The factored key-grid bias.
 struct GridBias {
@@ -552,308 +573,505 @@ struct GridBias {
   float* dh;        // dbias_h (bh, sq, kh), written by the dq kernel
   float* dw;        // dbias_w (bh, sq, kw), written by the dq kernel
   int kh, kw;
-  int nr;           // the most key-grid rows one key tile touches (dkv)
+  bool vec;         // bias rows copied in 16-byte chunks: kh and kw are
+                    // multiples of 4 and both bases 16-byte aligned
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT)
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// f32 row strides of the bias slabs. dq reads bias_w as float2 over four
+// lanes and four rows per half-warp: a stride ≡ 8 (mod 32) puts the rows
+// eight banks apart. dkv reads one float per lane from the rows of two
+// neighbouring queries and eight keys' columns: ≡ 4 (mod 32) keeps them
+// apart. Both hold at kw = 64 (72 and 68).
+__host__ __device__ inline int gb_dq_stride(int cols) {
+  return round4(cols) + 8;
+}
+__host__ __device__ inline int gb_dkv_stride(int cols) {
+  return round4(cols) + 4;
+}
+
+// Copy columns [c0, c0 + cols) of rows [r0, r0 + TC_ROWS) of an (n, ld) f32
+// array into a [TC_ROWS][stride] slab; rows at or past n are zero-filled.
+// 16-byte copies when vec (ld, c0, cols and stride multiples of 4, the base
+// 16-byte aligned), 4-byte ones otherwise.
+__device__ __forceinline__ void load_rows_f32(float* dst, int stride,
+                                              const float* src, int ld,
+                                              int c0, int cols, int r0, int n,
+                                              bool vec, int tid) {
+  if (vec) {
+    const int cpr = cols >> 2;
+    for (int i = tid; i < TC_ROWS * cpr; i += TC_NT) {
+      const int r = i / cpr, c = (i - r * cpr) << 2;
+      const bool in = r0 + r < n;
+      cp_async16(dst + r * stride + c,
+                 src + (size_t)(in ? r0 + r : 0) * ld + c0 + c, in);
+    }
+  } else {
+    for (int i = tid; i < TC_ROWS * cols; i += TC_NT) {
+      const int r = i / cols, c = i - r * cols;
+      const bool in = r0 + r < n;
+      cp_async4(dst + r * stride + c,
+                src + (size_t)(in ? r0 + r : 0) * ld + c0 + c, in);
+    }
+  }
+}
+
+// The grid-bias dq kernel: dq, dbias_h and dbias_w. One block per
+// (batch·head, 64 query rows), four warps of 16 rows, the products as in
+// bwd_dq_kernel. The block's rows of bias_h and bias_w come once, with its
+// Q and g tiles. The bias gradients sum the f32 ds of each tile before it
+// is scaled and rounded to bf16, by one of two policies:
+// * ROW_TILE (kw = 64, SAM-H's 64 × 64 grid): a 64-key tile is key-grid row
+//   t, so dbias_h[q, t] is the tile's row sum of ds: each lane sums its 16
+//   values of a row, a quad shuffle (xor 1, 2) completes it and one lane
+//   stores it, the only write of that element. dbias_w[q, n] takes column n
+//   of every tile: each lane keeps its 2 rows × 16 columns in registers
+//   across tiles and stores them at the end.
+// * otherwise (any kh·kw = sk, such as the small SAM's 32 × 32 grid, or a
+//   kw that does not divide 64): the warp writes its ds rows to a shared
+//   [64][65] slab and sums them there into the warp's rows of dbias_h and
+//   dbias_w sums kept in shared memory, two lanes to a row, each lane
+//   owning the grid rows and columns of its parity; written at the end.
+// Every element is summed in a fixed order by one thread: no atomics.
+template <bool ROW_TILE>
+__global__ void __launch_bounds__(TC_NT)
 gb_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ g,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dq,
-                 GridBias gb, int sq, int sk, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [BQ][D + 1], pre-scaled
-  float* gs = qs + BQ * (D + 1);       // [BQ][D + 1]
-  float* ks = gs + BQ * (D + 1);       // [BK][D + 1]
-  float* vs = ks + BK * (D + 1);       // [BK][D + 1]
-  float* dss = vs + BK * (D + 1);      // [BQ][BK + 1] ds of the tile
-  float* hs = dss + BQ * (BK + 1);     // [BQ][kh + 1] bias_h rows
-  float* ws = hs + BQ * (gb.kh + 1);   // [BQ][kw + 1] bias_w rows
-  float* dhs = ws + BQ * (gb.kw + 1);  // [BQ][kh + 1] dbias_h sums
-  float* dws = dhs + BQ * (gb.kh + 1); // [BQ][kw + 1] dbias_w sums
+                 GridBias bias, int sq, int sk, float scale) {
+  constexpr int D = GB_D, BM = TC_ROWS, BN = TC_ROWS, S = Tile<D>::STRIDE;
+  const int kh = bias.kh, kw = bias.kw;
+  const int hst = gb_dq_stride(kh), wst = gb_dq_stride(kw);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][S]
+  bf16* gs = qs + BM * S;                        // [BM][S]
+  bf16* ks = gs + BM * S;                        // [2][BN][S] ring
+  bf16* vs = ks + 2 * BN * S;                    // [2][BN][S] ring
+  float* hs = reinterpret_cast<float*>(vs + 2 * BN * S);  // [BM][hst] bias_h
+  float* ws = hs + BM * hst;                              // [BM][wst] bias_w
+  float* dss = ws + BM * wst;          // [BM][BN + 1] ds (not ROW_TILE)
+  float* dhs = dss + BM * (BN + 1);    // [BM][kh + 1] dbias_h sums (ditto)
+  float* dws = dhs + BM * (kh + 1);    // [BM][kw + 1] dbias_w sums (ditto)
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;           // query row within the tile
-  const int c4 = tid & 3;           // column phase: keys c4 + 4j, dims c4 + 4i
-  const size_t qoff = (size_t)bh * sq * D;
-  const size_t koff = (size_t)bh * sk * D;
-  const size_t hoff = (size_t)bh * sq * gb.kh;
-  const size_t woff = (size_t)bh * sq * gb.kw;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* gb = g + (size_t)bh * sq * D;
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int rr = i / D, dd = i % D, qi = q0 + rr;
-    float qv = 0.f, gv = 0.f;
-    if (qi < sq) {
-      qv = __bfloat162float(q[qoff + (size_t)qi * D + dd]) * scale;
-      gv = __bfloat162float(g[qoff + (size_t)qi * D + dd]);
-    }
-    qs[rr * (D + 1) + dd] = qv;
-    gs[rr * (D + 1) + dd] = gv;
-  }
-  {
-    const int kh = gb.kh, kw = gb.kw;
-    for (int i = tid; i < BQ * kh; i += NT) {
-      const int rr = i / kh, mm = i % kh, qi = q0 + rr;
-      hs[rr * (kh + 1) + mm] = qi < sq ? gb.h[hoff + (size_t)qi * kh + mm] : 0.f;
-      dhs[rr * (kh + 1) + mm] = 0.f;
-    }
-    for (int i = tid; i < BQ * kw; i += NT) {
-      const int rr = i / kw, nn = i % kw, qi = q0 + rr;
-      ws[rr * (kw + 1) + nn] = qi < sq ? gb.w[woff + (size_t)qi * kw + nn] : 0.f;
-      dws[rr * (kw + 1) + nn] = 0.f;
-    }
-  }
-  const int qi = q0 + r;
-  const float lse_r = qi < sq ? lse[(size_t)bh * sq + qi] : 0.f;
-  const float dl_r = qi < sq ? delta[(size_t)bh * sq + qi] : 0.f;
+  load_tile<D, BM>(qs, qb, q0, sq, tid);
+  load_tile<D, BM>(gs, gb, q0, sq, tid);
+  load_rows_f32(hs, hst, bias.h + (size_t)bh * sq * kh, kh, 0, kh, q0, sq,
+                bias.vec, tid);
+  load_rows_f32(ws, wst, bias.w + (size_t)bh * sq * kw, kw, 0, kw, q0, sq,
+                bias.vec, tid);
+  load_tile<D, BN>(ks, kb, 0, sk, tid);
+  load_tile<D, BN>(vs, vb, 0, sk, tid);
+  cp_async_commit();
 
-  constexpr int DPT = D / 4;
-  constexpr int KPT = BK / 4;
-  float acc[DPT];
+  // this lane's two rows of the warp's 16: w0 + g4 and w0 + g4 + 8
+  const int w0 = warp * 16;
+  const int r_lo = q0 + w0 + g4, r_hi = r_lo + 8;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* db = delta + (size_t)bh * sq;
+  const float l_lo = r_lo < sq ? lb[r_lo] * LOG2E : 0.f;
+  const float l_hi = r_hi < sq ? lb[r_hi] * LOG2E : 0.f;
+  const float d_lo = r_lo < sq ? db[r_lo] : 0.f;
+  const float d_hi = r_hi < sq ? db[r_hi] : 0.f;
+  const float* h_lo = hs + (w0 + g4) * hst;
+  const float* h_hi = h_lo + 8 * hst;
+  const float* w_lo = ws + (w0 + g4) * wst;
+  const float* w_hi = w_lo + 8 * wst;
+
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  const float* hrow = hs + r * (gb.kh + 1);
-  const float* wrow = ws + r * (gb.kw + 1);
-  float* dhrow = dhs + r * (gb.kh + 1);
-  float* dwrow = dws + r * (gb.kw + 1);
-  float* dsrow = dss + r * (BK + 1);
-
-  for (int kb = 0; kb < sk; kb += BK) {
-    __syncthreads();  // q/g rows are in; the previous K/V/ds tiles are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int rr = i / D, dd = i % D, ki = kb + rr;
-      float kv = 0.f, vv = 0.f;
-      if (ki < sk) {
-        kv = __bfloat162float(k[koff + (size_t)ki * D + dd]);
-        vv = __bfloat162float(v[koff + (size_t)ki * D + dd]);
-      }
-      ks[rr * (D + 1) + dd] = kv;
-      vs[rr * (D + 1) + dd] = vv;
-    }
-    __syncthreads();
-
-    float s[KPT], dp[KPT];
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // ROW_TILE: dbias_w of this lane's rows and columns j·8 + 2·t4 (+ 1)
+  float dbw[ROW_TILE ? BN / 8 : 1][4];
+  if constexpr (ROW_TILE) {
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) s[j] = dp[j] = 0.f;
-    const float* qrow = qs + r * (D + 1);
-    const float* grow = gs + r * (D + 1);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d], gd = grow[d];
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        s[j] += qd * ks[(c4 + 4 * j) * (D + 1) + d];
-        dp[j] += gd * vs[(c4 + 4 * j) * (D + 1) + d];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int ki = kb + c4 + 4 * j;
-      float p = 0.f;
-      if (ki < sk) {
-        const int row = ki / gb.kw;
-        p = expf((s[j] + hrow[row]) + wrow[ki - row * gb.kw] - lse_r);
-      }
-      dsrow[c4 + 4 * j] = p * (dp[j] - dl_r);           // unscaled
-    }
-    __syncwarp();  // the row's four lanes (one warp) wrote its ds row
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float dsv = dsrow[c];
-      const float* kr = ks + c * (D + 1) + c4;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += dsv * kr[4 * i];
-    }
-    {
-      // the tile's contribution to the row's bias gradients: lane c4 owns
-      // the columns n and the grid rows m that are c4 mod 4, in every tile
-      const int kw = gb.kw;
-      const int cmax = min(BK, sk - kb);
-      const int kb_mod = kb % kw;
-      for (int n = c4; n < kw; n += 4) {
-        float t = 0.f;
-        for (int c = (n - kb_mod + kw) % kw; c < cmax; c += kw) t += dsrow[c];
-        dwrow[n] += t;
-      }
-      const int m0 = kb / kw, m1 = (kb + cmax - 1) / kw;
-      for (int m = m0 + (c4 - m0 % 4 + 4) % 4; m <= m1; m += 4) {
-        const int lo = max(m * kw - kb, 0), hi = min((m + 1) * kw - kb, cmax);
-        float t = 0.f;
-        for (int c = lo; c < hi; ++c) t += dsrow[c];
-        dhrow[m] += t;
-      }
-    }
+    for (int j = 0; j < BN / 8; ++j)
+      dbw[j][0] = dbw[j][1] = dbw[j][2] = dbw[j][3] = 0.f;
+  } else {  // the warp's rows of the sums; visible after the loop's barrier
+    for (int i = lane; i < 16 * (kh + 1); i += 32)
+      dhs[w0 * (kh + 1) + i] = 0.f;
+    for (int i = lane; i < 16 * (kw + 1); i += 32)
+      dws[w0 * (kw + 1) + i] = 0.f;
   }
 
-  if (qi < sq) {
-    bf16* out = dq + qoff + (size_t)qi * D + c4;
+  const int nt = (sk + BN - 1) / BN;
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & 1;
+    if (t + 1 < nt) {  // the next K/V tile into the other stage
+      load_tile<D, BN>(ks + (st ^ 1) * BN * S, kb, (t + 1) * BN, sk, tid);
+      load_tile<D, BN>(vs + (st ^ 1) * BN * S, vb, (t + 1) * BN, sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this stage are in
+    const bf16* kt = ks + st * BN * S;
+    const bf16* vt = vs + st * BN * S;
+
+    // s = q·kᵀ and dp = g·vᵀ, 16 × BN per warp
+    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) out[4 * i] = __float2bfloat16(acc[i] * scale);
-    for (int m = c4; m < gb.kh; m += 4)
-      gb.dh[hoff + (size_t)qi * gb.kh + m] = dhrow[m];
-    for (int n = c4; n < gb.kw; n += 4)
-      gb.dw[woff + (size_t)qi * gb.kw + n] = dwrow[n];
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t qa[4], ga[4];
+      load_a<D>(qa, qs, w0, kk, lane);
+      load_a<D>(ga, gs, w0, kk, lane);
+#pragma unroll
+      for (int n = 0; n < BN; n += 16) {
+        uint32_t kf[4], vf[4];
+        load_b_nk<D>(kf, kt, n, kk, lane);
+        load_b_nk<D>(vf, vt, n, kk, lane);
+        mma(s[n / 8], qa, kf[0], kf[1]);
+        mma(s[n / 8 + 1], qa, kf[2], kf[3]);
+        mma(dp[n / 8], ga, vf[0], vf[1]);
+        mma(dp[n / 8 + 1], ga, vf[2], vf[3]);
+      }
+    }
+
+    // p = exp(scale·s + bias_h[q, key / kw] + bias_w[q, key % kw] − lse) and
+    // the unscaled ds = p·(dp − delta) in f32, keys at or past sk masked
+    // (p = 0); scale·ds as bf16 A fragments, 8-column tiles 2m and 2m + 1
+    // making k-step m
+    const int kb0 = t * BN;
+    float bh_lo = 0.f, bh_hi = 0.f, rs_lo = 0.f, rs_hi = 0.f;
+    if constexpr (ROW_TILE) {
+      bh_lo = h_lo[t];
+      bh_hi = h_hi[t];
+    }
+    uint32_t dsa[BN / 16][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + t4 * 2;  // this lane's two key columns
+      bool in0 = true, in1 = true;   // ROW_TILE: sk = 64·kh, tiles whole
+      float b0, b1, b2, b3;
+      if constexpr (ROW_TILE) {
+        const float2 wl = *reinterpret_cast<const float2*>(w_lo + c);
+        const float2 wh = *reinterpret_cast<const float2*>(w_hi + c);
+        b0 = bh_lo + wl.x;
+        b1 = bh_lo + wl.y;
+        b2 = bh_hi + wh.x;
+        b3 = bh_hi + wh.y;
+      } else {
+        const int key = kb0 + c;
+        in0 = key < sk;
+        in1 = key + 1 < sk;
+        const int m0 = in0 ? key / kw : 0, n0 = in0 ? key - m0 * kw : 0;
+        const int m1 = in1 ? (key + 1) / kw : 0;
+        const int n1 = in1 ? key + 1 - m1 * kw : 0;
+        b0 = h_lo[m0] + w_lo[n0];
+        b1 = h_lo[m1] + w_lo[n1];
+        b2 = h_hi[m0] + w_hi[n0];
+        b3 = h_hi[m1] + w_hi[n1];
+      }
+      const float p0 = in0 ? exp2f(fmaf(s[j][0], scale, b0) * LOG2E - l_lo)
+                           : 0.f;
+      const float p1 = in1 ? exp2f(fmaf(s[j][1], scale, b1) * LOG2E - l_lo)
+                           : 0.f;
+      const float p2 = in0 ? exp2f(fmaf(s[j][2], scale, b2) * LOG2E - l_hi)
+                           : 0.f;
+      const float p3 = in1 ? exp2f(fmaf(s[j][3], scale, b3) * LOG2E - l_hi)
+                           : 0.f;
+      const float ds0 = p0 * (dp[j][0] - d_lo), ds1 = p1 * (dp[j][1] - d_lo);
+      const float ds2 = p2 * (dp[j][2] - d_hi), ds3 = p3 * (dp[j][3] - d_hi);
+      dsa[j / 2][(j & 1) * 2] = pack_bf16(ds0 * scale, ds1 * scale);
+      dsa[j / 2][(j & 1) * 2 + 1] = pack_bf16(ds2 * scale, ds3 * scale);
+      if constexpr (ROW_TILE) {
+        rs_lo += ds0 + ds1;
+        rs_hi += ds2 + ds3;
+        dbw[j][0] += ds0;
+        dbw[j][1] += ds1;
+        dbw[j][2] += ds2;
+        dbw[j][3] += ds3;
+      } else {
+        float* d = dss + (w0 + g4) * (BN + 1) + c;
+        d[0] = ds0;
+        d[1] = ds1;
+        d[8 * (BN + 1)] = ds2;
+        d[8 * (BN + 1) + 1] = ds3;
+      }
+    }
+
+    if constexpr (ROW_TILE) {  // dbias_h[q, t]: the row sums of the tile
+      rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, 1);
+      rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, 1);
+      rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, 2);
+      rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, 2);
+      if (t4 == 0) {
+        float* dhb = bias.dh + (size_t)bh * sq * kh + t;
+        if (r_lo < sq) dhb[(size_t)r_lo * kh] = rs_lo;
+        if (r_hi < sq) dhb[(size_t)r_hi * kh] = rs_hi;
+      }
+    } else {  // the tile's part of the warp's rows of both sums
+      __syncwarp();
+      const int rr = w0 + (lane >> 1), par = lane & 1;
+      const float* row = dss + rr * (BN + 1);
+      const int cmax = min(BN, sk - kb0), kb_mod = kb0 % kw;
+      float* dwr = dws + rr * (kw + 1);
+      for (int n = par; n < kw; n += 2) {
+        float sum = 0.f;
+        for (int c = (n - kb_mod + kw) % kw; c < cmax; c += kw) sum += row[c];
+        dwr[n] += sum;
+      }
+      float* dhr = dhs + rr * (kh + 1);
+      const int m0 = kb0 / kw, m1 = (kb0 + cmax - 1) / kw;
+      for (int m = m0 + ((m0 & 1) != par); m <= m1; m += 2) {
+        const int lo = max(m * kw - kb0, 0), hi = min((m + 1) * kw - kb0, cmax);
+        float sum = 0.f;
+        for (int c = lo; c < hi; ++c) sum += row[c];
+        dhr[m] += sum;
+      }
+      __syncwarp();  // the slab is rewritten by the next tile
+    }
+
+    // dq += (scale·ds)·k: depth = the tile's keys, columns = D
+#pragma unroll
+    for (int m = 0; m < BN / 16; ++m) {
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        uint32_t kf[4];
+        load_b_kn<D>(kf, kt, m * 16, n, lane);
+        mma(acc[n / 8], dsa[m], kf[0], kf[1]);
+        mma(acc[n / 8 + 1], dsa[m], kf[2], kf[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by tile t + 2
+  }
+
+  store_rows<D>(acc, qs, w0, dq + (size_t)bh * sq * D, q0 + w0, sq, lane);
+  float* dhb = bias.dh + (size_t)bh * sq * kh;
+  float* dwb = bias.dw + (size_t)bh * sq * kw;
+  if constexpr (ROW_TILE) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + t4 * 2;
+      if (r_lo < sq) {
+        dwb[(size_t)r_lo * kw + c] = dbw[j][0];
+        dwb[(size_t)r_lo * kw + c + 1] = dbw[j][1];
+      }
+      if (r_hi < sq) {
+        dwb[(size_t)r_hi * kw + c] = dbw[j][2];
+        dwb[(size_t)r_hi * kw + c + 1] = dbw[j][3];
+      }
+    }
+  } else {  // the warp's rows of the sums
+    for (int i = lane; i < 16 * kh; i += 32) {
+      const int r = i / kh, m = i - r * kh;
+      if (q0 + w0 + r < sq)
+        dhb[(size_t)(q0 + w0 + r) * kh + m] = dhs[(w0 + r) * (kh + 1) + m];
+    }
+    for (int i = lane; i < 16 * kw; i += 32) {
+      const int r = i / kw, n = i - r * kw;
+      if (q0 + w0 + r < sq)
+        dwb[(size_t)(q0 + w0 + r) * kw + n] = dws[(w0 + r) * (kw + 1) + n];
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
+// The grid-bias dkv kernel: dk and dv. One block per (batch·head, 64
+// keys), four warps of 16 keys, the products as in bwd_dkv_kernel (sᵀ and
+// dpᵀ with keys as rows, pᵀ and dsᵀ straight into A fragments). Each
+// streamed query tile brings, on the same cp.async ring as its Q, g, lse and
+// delta, its [64][kw] rows of bias_w and the columns of bias_h for the nr
+// key-grid rows that the block's keys touch (one at kw = 64). A lane's two
+// keys have fixed grid rows and columns, so each of its logits adds two
+// shared-memory reads of the query's bias rows.
+__global__ void __launch_bounds__(TC_NT)
 gb_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ g,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, GridBias gb, int sq, int sk,
+                  bf16* __restrict__ dv, GridBias bias, int nr, int sq, int sk,
                   float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;                   // [BK][D + 1], pre-scaled
-  float* vs = ks + BK * (D + 1);      // [BK][D + 1]
-  float* qs = vs + BK * (D + 1);      // [BQ][D + 1]
-  float* gs = qs + BQ * (D + 1);      // [BQ][D + 1]
-  float* ps = gs + BQ * (D + 1);      // [BK][BQ + 1] p of the tile
-  float* dss = ps + BK * (BQ + 1);    // [BK][BQ + 1] ds of the tile
-  float* ls = dss + BK * (BQ + 1);    // [BQ] lse
-  float* dls = ls + BQ;               // [BQ] delta
-  float* hs = dls + BQ;               // [BQ][nr + 1] bias_h, this tile's rows
-  float* ws = hs + BQ * (gb.nr + 1);  // [BQ][kw + 1] bias_w
+  constexpr int D = GB_D, BM = TC_ROWS, BN = TC_ROWS, S = Tile<D>::STRIDE;
+  const int kh = bias.kh, kw = bias.kw, wst = gb_dkv_stride(kw);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BM][S]
+  bf16* vs = ks + BM * S;                        // [BM][S]
+  bf16* qs = vs + BM * S;                        // [2][BN][S] ring
+  bf16* gs = qs + 2 * BN * S;                    // [2][BN][S] ring
+  float* wsr = reinterpret_cast<float*>(gs + 2 * BN * S);  // [2][BN][wst]
+  float* hsr = wsr + 2 * BN * wst;                         // [2][BN][nr]
+  float* ls = hsr + 2 * BN * nr;                           // [2][BN] lse
+  float* dls = ls + 2 * BN;                                // [2][BN] delta
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;           // key row within the tile
-  const int c4 = tid & 3;           // column phase: queries c4 + 4j, dims c4 + 4i
-  const size_t qoff = (size_t)bh * sq * D;
-  const size_t koff = (size_t)bh * sk * D;
-  const size_t hoff = (size_t)bh * sq * gb.kh;
-  const size_t woff = (size_t)bh * sq * gb.kw;
-  const int key = k0 + r;
-  // key-grid rows m0 .. m0 + nt - 1 hold this tile's keys (nt <= nr); this
-  // key reads column my_m of hs and column my_n of ws
-  const int m0 = k0 / gb.kw;
-  const int nt = (min(k0 + BK, sk) - 1) / gb.kw - m0 + 1;
-  const int my_m = key < sk ? key / gb.kw - m0 : 0;
-  const int my_n = key % gb.kw;
+  const int bh = blockIdx.y, k0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* gb = g + (size_t)bh * sq * D;
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
+  const float* hb = bias.h + (size_t)bh * sq * kh;
+  const float* wb = bias.w + (size_t)bh * sq * kw;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* db = delta + (size_t)bh * sq;
+  // the block's keys lie in key-grid rows m0 .. m0 + rows − 1 (rows ≤ nr)
+  const int m0 = k0 / kw;
+  const int rows = (min(k0 + BM, sk) - 1) / kw - m0 + 1;
 
-  for (int i = tid; i < BK * D; i += NT) {
-    const int rr = i / D, dd = i % D, ki = k0 + rr;
-    float kv = 0.f, vv = 0.f;
-    if (ki < sk) {
-      kv = __bfloat162float(k[koff + (size_t)ki * D + dd]) * scale;
-      vv = __bfloat162float(v[koff + (size_t)ki * D + dd]);
+  // one streamed tile: BN rows of Q and g, their bias rows, lse and delta
+  auto load_q_tile = [&](int stage, int r0) {
+    load_tile<D, BN>(qs + stage * BN * S, qb, r0, sq, tid);
+    load_tile<D, BN>(gs + stage * BN * S, gb, r0, sq, tid);
+    load_rows_f32(wsr + stage * BN * wst, wst, wb, kw, 0, kw, r0, sq,
+                  bias.vec, tid);
+    load_rows_f32(hsr + stage * BN * nr, nr, hb, kh, m0, rows, r0, sq, false,
+                  tid);
+    for (int i = tid; i < BN; i += TC_NT) {
+      const bool in = r0 + i < sq;
+      const int row = in ? r0 + i : 0;
+      cp_async4(ls + stage * BN + i, lb + row, in);
+      cp_async4(dls + stage * BN + i, db + row, in);
     }
-    ks[rr * (D + 1) + dd] = kv;
-    vs[rr * (D + 1) + dd] = vv;
+  };
+
+  load_tile<D, BM>(ks, kb, k0, sk, tid);
+  load_tile<D, BM>(vs, vb, k0, sk, tid);
+  load_q_tile(0, 0);
+  cp_async_commit();
+
+  const int w0 = warp * 16;  // this warp's 16 keys of the block's 64
+  // this lane's keys k0 + w0 + g4 (lo) and + 8 (hi): their grid row, as a
+  // column of the hs slab, and grid column; keys at or past sk read column
+  // 0 (their rows are never stored)
+  const int key_lo = k0 + w0 + g4, key_hi = key_lo + 8;
+  const int mh_lo = key_lo < sk ? key_lo / kw - m0 : 0;
+  const int mh_hi = key_hi < sk ? key_hi / kw - m0 : 0;
+  const int nw_lo = key_lo < sk ? key_lo % kw : 0;
+  const int nw_hi = key_hi < sk ? key_hi % kw : 0;
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  const int nt = (sq + BN - 1) / BN;
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & 1;
+    if (t + 1 < nt) {  // the next query tile into the other stage
+      load_q_tile(st ^ 1, (t + 1) * BN);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this stage are in
+    const bf16* qt = qs + st * BN * S;
+    const bf16* gt = gs + st * BN * S;
+    const float* wt = wsr + st * BN * wst;
+    const float* ht = hsr + st * BN * nr;
+    const float* lt = ls + st * BN;
+    const float* dlt = dls + st * BN;
+
+    // sᵀ = k·qᵀ and dpᵀ = v·gᵀ, 16 keys × BN queries per warp
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t ka[4], va[4];
+      load_a<D>(ka, ks, w0, kk, lane);
+      load_a<D>(va, vs, w0, kk, lane);
+#pragma unroll
+      for (int n = 0; n < BN; n += 16) {
+        uint32_t qf[4], gf[4];
+        load_b_nk<D>(qf, qt, n, kk, lane);
+        load_b_nk<D>(gf, gt, n, kk, lane);
+        mma(s[n / 8], ka, qf[0], qf[1]);
+        mma(s[n / 8 + 1], ka, qf[2], qf[3]);
+        mma(dp[n / 8], va, gf[0], gf[1]);
+        mma(dp[n / 8 + 1], va, gf[2], gf[3]);
+      }
+    }
+
+    // pᵀ and dsᵀ = pᵀ·(dpᵀ − delta)·scale with the bias in the logits,
+    // queries at or past sq masked (p = 0), as bf16 A fragments
+    uint32_t pa[BN / 16][4], dsa[BN / 16][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + t4 * 2;  // this lane's two query columns
+      const bool in0 = t * BN + c < sq, in1 = t * BN + c + 1 < sq;
+      const float l0 = lt[c] * LOG2E, l1 = lt[c + 1] * LOG2E;
+      const float e0 = dlt[c], e1 = dlt[c + 1];
+      const float* h0 = ht + c * nr;   // query c's bias_h columns
+      const float* h1 = h0 + nr;       // query c + 1's
+      const float* v0 = wt + c * wst;  // query c's bias_w row
+      const float* v1 = v0 + wst;
+      const float b0 = h0[mh_lo] + v0[nw_lo], b1 = h1[mh_lo] + v1[nw_lo];
+      const float b2 = h0[mh_hi] + v0[nw_hi], b3 = h1[mh_hi] + v1[nw_hi];
+      const float p0 = in0 ? exp2f(fmaf(s[j][0], scale, b0) * LOG2E - l0)
+                           : 0.f;
+      const float p1 = in1 ? exp2f(fmaf(s[j][1], scale, b1) * LOG2E - l1)
+                           : 0.f;
+      const float p2 = in0 ? exp2f(fmaf(s[j][2], scale, b2) * LOG2E - l0)
+                           : 0.f;
+      const float p3 = in1 ? exp2f(fmaf(s[j][3], scale, b3) * LOG2E - l1)
+                           : 0.f;
+      pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      dsa[j / 2][(j & 1) * 2] = pack_bf16(p0 * (dp[j][0] - e0) * scale,
+                                          p1 * (dp[j][1] - e1) * scale);
+      dsa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2 * (dp[j][2] - e0) * scale,
+                                              p3 * (dp[j][3] - e1) * scale);
+    }
+
+    // dv += pᵀ·g and dk += dsᵀ·q: depth = the tile's queries, columns = D
+#pragma unroll
+    for (int m = 0; m < BN / 16; ++m) {
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        uint32_t gf[4], qf[4];
+        load_b_kn<D>(gf, gt, m * 16, n, lane);
+        load_b_kn<D>(qf, qt, m * 16, n, lane);
+        mma(dva[n / 8], pa[m], gf[0], gf[1]);
+        mma(dva[n / 8 + 1], pa[m], gf[2], gf[3]);
+        mma(dka[n / 8], dsa[m], qf[0], qf[1]);
+        mma(dka[n / 8 + 1], dsa[m], qf[2], qf[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by tile t + 2
   }
 
-  constexpr int DPT = D / 4;
-  constexpr int QPT = BQ / 4;
-  float dk_acc[DPT], dv_acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  const float* krow = ks + r * (D + 1);
-  const float* vrow = vs + r * (D + 1);
-  float* prow = ps + r * (BQ + 1);
-  float* dsrow = dss + r * (BQ + 1);
-
-  for (int qb = 0; qb < sq; qb += BQ) {
-    __syncthreads();  // K/V rows are in; the previous Q/g/p/ds tiles are done
-    for (int i = tid; i < BQ * D; i += NT) {
-      const int rr = i / D, dd = i % D, qi = qb + rr;
-      float qv = 0.f, gv = 0.f;
-      if (qi < sq) {
-        qv = __bfloat162float(q[qoff + (size_t)qi * D + dd]);
-        gv = __bfloat162float(g[qoff + (size_t)qi * D + dd]);
-      }
-      qs[rr * (D + 1) + dd] = qv;
-      gs[rr * (D + 1) + dd] = gv;
-    }
-    for (int i = tid; i < BQ; i += NT) {
-      const bool in = qb + i < sq;
-      ls[i] = in ? lse[(size_t)bh * sq + qb + i] : 0.f;
-      dls[i] = in ? delta[(size_t)bh * sq + qb + i] : 0.f;
-    }
-    {
-      const int nr = gb.nr, kh = gb.kh, kw = gb.kw;
-      for (int i = tid; i < BQ * nt; i += NT) {
-        const int rr = i / nt, mm = i % nt, qi = qb + rr;
-        hs[rr * (nr + 1) + mm] =
-            qi < sq ? gb.h[hoff + (size_t)qi * kh + m0 + mm] : 0.f;
-      }
-      for (int i = tid; i < BQ * kw; i += NT) {
-        const int rr = i / kw, nn = i % kw, qi = qb + rr;
-        ws[rr * (kw + 1) + nn] =
-            qi < sq ? gb.w[woff + (size_t)qi * kw + nn] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float s[QPT], dp[QPT];
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) s[j] = dp[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kd = krow[d], vd = vrow[d];
-#pragma unroll
-      for (int j = 0; j < QPT; ++j) {
-        s[j] += kd * qs[(c4 + 4 * j) * (D + 1) + d];
-        dp[j] += vd * gs[(c4 + 4 * j) * (D + 1) + d];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const int c = c4 + 4 * j;
-      float p = 0.f;
-      if (qb + c < sq)
-        p = expf((s[j] + hs[c * (gb.nr + 1) + my_m]) +
-                 ws[c * (gb.kw + 1) + my_n] - ls[c]);
-      prow[c] = p;
-      dsrow[c] = p * (dp[j] - dls[c]) * scale;
-    }
-    __syncwarp();  // the row's four lanes (one warp) wrote its p and ds rows
-
-#pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      const float p = prow[c], dsv = dsrow[c];
-      const float* qr = qs + c * (D + 1) + c4;
-      const float* gr = gs + c * (D + 1) + c4;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dk_acc[i] += dsv * qr[4 * i];
-        dv_acc[i] += p * gr[4 * i];
-      }
-    }
-  }
-
-  if (key < sk) {
-    bf16* dko = dk + koff + (size_t)key * D + c4;
-    bf16* dvo = dv + koff + (size_t)key * D + c4;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      dko[4 * i] = __float2bfloat16(dk_acc[i]);
-      dvo[4 * i] = __float2bfloat16(dv_acc[i]);
-    }
-  }
+  const size_t off = (size_t)bh * sk * D;
+  store_rows<D>(dka, ks, w0, dk + off, k0 + w0, sk, lane);
+  store_rows<D>(dva, vs, w0, dv + off, k0 + w0, sk, lane);
 }
 
-template <int D>
+template <bool ROW_TILE>
 cudaError_t launch_gb_dq(const void* q, const void* k, const void* v,
                          const void* g, const void* lse, const void* delta,
                          void* dq, GridBias gb, int bh, int sq, int sk,
                          float scale, cudaStream_t stream) {
-  const size_t floats = 2 * (size_t)BQ * (D + 1) + 2 * BK * (D + 1) +
-                        BQ * (BK + 1) + 2 * (size_t)BQ * (gb.kh + 1) +
-                        2 * (size_t)BQ * (gb.kw + 1);
-  const size_t smem = sizeof(float) * floats;
+  size_t smem = sizeof(bf16) * 6 * TC_ROWS * Tile<GB_D>::STRIDE +
+                sizeof(float) * TC_ROWS *
+                    (gb_dq_stride(gb.kh) + gb_dq_stride(gb.kw));
+  if (!ROW_TILE)
+    smem += sizeof(float) * TC_ROWS *
+            ((size_t)(TC_ROWS + 1) + (gb.kh + 1) + (gb.kw + 1));
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gb_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gb_bwd_dq_kernel<ROW_TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  gb_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
+  const dim3 grid((sq + TC_ROWS - 1) / TC_ROWS, bh);
+  gb_bwd_dq_kernel<ROW_TILE><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -861,28 +1079,26 @@ cudaError_t launch_gb_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
 cudaError_t launch_gb_dkv(const void* q, const void* k, const void* v,
                           const void* g, const void* lse, const void* delta,
                           void* dk, void* dv, GridBias gb, int bh, int sq,
                           int sk, float scale, cudaStream_t stream) {
-  // the most key-grid rows that one tile of BK consecutive keys can touch
-  gb.nr = min(gb.kh, (BK - 1) / gb.kw + 2);
-  const size_t floats = 2 * (size_t)BK * (D + 1) + 2 * BQ * (D + 1) +
-                        2 * BK * (BQ + 1) + 2 * BQ +
-                        (size_t)BQ * (gb.nr + 1) + (size_t)BQ * (gb.kw + 1);
-  const size_t smem = sizeof(float) * floats;
+  // the most key-grid rows that one tile of TC_ROWS consecutive keys touches
+  const int nr = min(gb.kh, (TC_ROWS - 1) / gb.kw + 2);
+  const size_t smem =
+      sizeof(bf16) * 6 * TC_ROWS * Tile<GB_D>::STRIDE +
+      sizeof(float) * 2 * TC_ROWS * ((size_t)gb_dkv_stride(gb.kw) + nr + 2);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gb_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gb_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + BK - 1) / BK, bh);
-  gb_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+  const dim3 grid((sk + TC_ROWS - 1) / TC_ROWS, bh);
+  gb_bwd_dkv_kernel<<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), gb, sq, sk, scale);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), gb, nr, sq, sk, scale);
   return cudaGetLastError();
 }
 
@@ -894,7 +1110,7 @@ bool bad_grid(int sk, int kh, int kw) {
   return kh <= 0 || kw <= 0 || (long long)kh * kw != sk;
 }
 
-// the tensor-core kernels copy 16-byte chunks of every bf16 row
+// the kernels copy 16-byte chunks of every bf16 row
 bool misaligned(const void* a, const void* b, const void* c, const void* d,
                 const void* e, const void* f = nullptr) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(a) |
@@ -904,6 +1120,13 @@ bool misaligned(const void* a, const void* b, const void* c, const void* d,
                         reinterpret_cast<uintptr_t>(e) |
                         reinterpret_cast<uintptr_t>(f);
   return (any & 15) != 0;
+}
+
+// bias rows go by 16-byte copies when every row starts 16-byte aligned
+bool bias_vec(const void* bias_h, const void* bias_w, int kh, int kw) {
+  return kh % 4 == 0 && kw % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(bias_h) |
+           reinterpret_cast<uintptr_t>(bias_w)) & 15) == 0;
 }
 
 }  // namespace
@@ -944,9 +1167,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// As flash_bwd_dq_bf16 (no alignment needed), with the grid bias: bias_h
-// and dbias_h (bh, sq, kh), bias_w and dbias_w (bh, sq, kw), contiguous
-// f32, sk = kh·kw.
+// As flash_bwd_dq_bf16 (q, k, v, g and dq 16-byte aligned), with the grid
+// bias: bias_h and dbias_h (bh, sq, kh), bias_w and dbias_w (bh, sq, kw),
+// contiguous f32, sk = kh·kw, d = 80.
 extern "C" int flash_gb_bwd_dq_bf16(const void* q, const void* k,
                                     const void* v, const void* bias_h,
                                     const void* bias_w, const void* g,
@@ -954,17 +1177,23 @@ extern "C" int flash_gb_bwd_dq_bf16(const void* q, const void* k,
                                     void* dq, void* dbias_h, void* dbias_w,
                                     int bh, int sq, int sk, int kh, int kw,
                                     int d, float scale, void* stream) {
-  if (bad_shape(bh, sq, sk) || bad_grid(sk, kh, kw) || d != 80)
+  if (bad_shape(bh, sq, sk) || bad_grid(sk, kh, kw) || d != GB_D ||
+      misaligned(q, k, v, g, dq))
     return (int)cudaErrorInvalidValue;
   const GridBias gb{static_cast<const float*>(bias_h),
                     static_cast<const float*>(bias_w),
                     static_cast<float*>(dbias_h), static_cast<float*>(dbias_w),
-                    kh, kw, 0};
-  return (int)launch_gb_dq<80>(q, k, v, g, lse, delta, dq, gb, bh, sq, sk,
-                               scale, static_cast<cudaStream_t>(stream));
+                    kh, kw, bias_vec(bias_h, bias_w, kh, kw)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kw == TC_ROWS)
+    return (int)launch_gb_dq<true>(q, k, v, g, lse, delta, dq, gb, bh, sq, sk,
+                                   scale, st);
+  return (int)launch_gb_dq<false>(q, k, v, g, lse, delta, dq, gb, bh, sq, sk,
+                                  scale, st);
 }
 
-// As flash_gb_bwd_dq_bf16; dk and dv (bh, sk, d) contiguous bf16.
+// As flash_gb_bwd_dq_bf16; dk and dv (bh, sk, d) contiguous bf16, 16-byte
+// aligned.
 extern "C" int flash_gb_bwd_dkv_bf16(const void* q, const void* k,
                                      const void* v, const void* bias_h,
                                      const void* bias_w, const void* g,
@@ -972,11 +1201,12 @@ extern "C" int flash_gb_bwd_dkv_bf16(const void* q, const void* k,
                                      void* dk, void* dv, int bh, int sq,
                                      int sk, int kh, int kw, int d,
                                      float scale, void* stream) {
-  if (bad_shape(bh, sq, sk) || bad_grid(sk, kh, kw) || d != 80)
+  if (bad_shape(bh, sq, sk) || bad_grid(sk, kh, kw) || d != GB_D ||
+      misaligned(q, k, v, g, dk, dv))
     return (int)cudaErrorInvalidValue;
   const GridBias gb{static_cast<const float*>(bias_h),
                     static_cast<const float*>(bias_w), nullptr, nullptr, kh,
-                    kw, 0};
-  return (int)launch_gb_dkv<80>(q, k, v, g, lse, delta, dk, dv, gb, bh, sq,
-                                sk, scale, static_cast<cudaStream_t>(stream));
+                    kw, bias_vec(bias_h, bias_w, kh, kw)};
+  return (int)launch_gb_dkv(q, k, v, g, lse, delta, dk, dv, gb, bh, sq, sk,
+                            scale, static_cast<cudaStream_t>(stream));
 }

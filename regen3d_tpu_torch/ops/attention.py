@@ -9,10 +9,10 @@ q, k, v are (B, H, S, D). Both ops are ``torch.autograd.Function``s.
   (bf16 in and out, tensor cores with f32 accumulation, p and scale·ds
   rounded to bf16 before the second products, D ∈ {16, 32, 64, 128}).
 * :func:`flash_attention_grid_bias_fwd` launches ``csrc/flash_gb_fwd.cu``
-  forward and the grid-bias instances of ``csrc/flash_bwd.cu``'s dq and
-  dkv kernels backward (the same with SAM's factored key-grid bias, the dq
-  kernel also summing the bias gradients; f32 bias factors and bias
-  gradients, D = 80).
+  forward and ``csrc/flash_bwd.cu``'s grid-bias dq and dkv kernels
+  backward (the same tensor-core design with SAM's factored key-grid bias,
+  the dq kernel also summing the bias gradients from the f32 ds; f32 bias
+  factors and bias gradients, D = 80).
 
 The backward follows the JAX package's: delta = Σ_d o·g in f32 (plain
 torch, outside the kernels, as JAX computes it), then the dq kernel gridded
@@ -102,6 +102,13 @@ def flash_bwd_dkv_reference(q, k, v, g, lse, delta, scale: float
     return dk, dv
 
 
+def _abs_terms(p, ds, q, k, g, scale):
+    ds = (ds * scale).abs()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            torch.einsum("bhqk,bhqd->bhkd", p, g.float().abs()))
+
+
 def flash_bwd_abs_terms_reference(q, k, v, g, lse, delta, scale: float
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
@@ -111,10 +118,19 @@ def flash_bwd_abs_terms_reference(q, k, v, g, lse, delta, scale: float
     which moves each term by a fraction of its magnitude; chip_smoke.py's
     bound on the kernels is a fraction of these sums."""
     p, ds = _probs_and_ds(q, k, v, g, lse, delta, scale)
-    ds = (ds * scale).abs()
-    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
-            torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
-            torch.einsum("bhqk,bhqd->bhkd", p, g.float().abs()))
+    return _abs_terms(p, ds, q, k, g, scale)
+
+
+def grid_bias_bwd_abs_terms_reference(q, k, v, bias_h, bias_w, kw: int, g,
+                                      lse, delta, scale: float
+                                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """Σ|terms| of each element of the grid-bias pair's dq, dk and dv in
+    f32, as :func:`flash_bwd_abs_terms_reference` with the factored bias in
+    the logits."""
+    p, ds = _probs_and_ds(q, k, v, g, lse, delta, scale,
+                          (bias_h, bias_w, kw))
+    return _abs_terms(p, ds, q, k, g, scale)
 
 
 def grid_bias_bwd_dq_reference(q, k, v, bias_h, bias_w, kw: int, g, lse,

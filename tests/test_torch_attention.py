@@ -6,9 +6,12 @@ with the dq and dkv kernels' plain versions) against ``jax.grad`` through
 the Pallas custom VJP and against torch autograd of ``attention_reference``,
 atol = rtol = 5e-4 as the JAX package's own gradient test; the same for
 the grid-bias op over all five arguments, dbias_h and dbias_w compared apart
-from dq. Also the kernel wrapper's refusals on the CPU side, and the bound
-``chip_smoke.bwd_error`` holds the card's flash backward kernels to, pinned
-from both sides with a torch model of their bf16 rounding."""
+from dq. Also the kernel wrapper's refusals on the CPU side, and the bounds
+``chip_smoke.bwd_error`` and ``chip_smoke.gb_bwd_error`` hold the card's
+flash and grid-bias backward kernels to, pinned from both sides with torch
+models of their bf16 rounding."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,8 @@ from regen3d_tpu_torch.ops.attention import (
     flash_bwd_abs_terms_reference,
     flash_bwd_dkv_reference,
     flash_bwd_dq_reference,
+    grid_bias_bwd_abs_terms_reference,
+    grid_bias_bwd_dkv_reference,
     grid_bias_bwd_dq_reference,
     grid_bias_reference,
 )
@@ -247,3 +252,114 @@ def test_backward_bound_refuses_a_broken_kernel(shape, fault, out):
     got = _rounded_backward(*args, fault=fault)
     with pytest.raises(AssertionError, match="over its bound"):
         chip_smoke.bwd_error(got[out], refs[out], terms[out], fault)
+
+
+# key grids of the grid-bias bound's checks, two heads of SAM-H's 80: 64 and
+# 256 keys, and a 4 × 24 grid, whose kw neither is 64 nor divides it
+GB_BOUND_GRIDS = [(8, 8), (16, 16), (4, 24)]
+GB_OUTPUTS = ("dq", "dbias_h", "dbias_w", "dk", "dv")
+
+
+def _gb_bwd_problem(kh, kw, seed):
+    """bf16 q, k, v, g; f32 bias factors, lse and delta, as the grid-bias
+    backward kernels get them."""
+    rng = np.random.default_rng(seed)
+    q, k, v, bias_h, bias_w = _grid_problem(rng, 1, 2, kh, kw, 80)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+    bias_h, bias_w = torch.from_numpy(bias_h), torch.from_numpy(bias_w)
+    o, lse = grid_bias_reference(q.float(), k.float(), v.float(), bias_h,
+                                 bias_w, kw)
+    delta = (o.to(torch.bfloat16).float() * g.float()).sum(-1)
+    return q, k, v, bias_h, bias_w, kw, g, lse, delta, 80 ** -0.5
+
+
+def _rounded_gb_backward(q, k, v, bias_h, bias_w, kw, g, lse, delta, scale,
+                         fault=None):
+    """(dq, dbias_h, dbias_w, dk, dv) as the tensor-core grid-bias pair
+    rounds them: logits and sums in f64, the bias gradients summed from the
+    unrounded ds, p and scale·ds rounded to bf16 before the second products,
+    dq, dk and dv to bf16. ``fault`` makes a broken kernel: "drop_key_tile"
+    leaves keys 64-127 out of dq, "drop_query_tile" queries 64-127 out of
+    dk, "double_scale" takes 2·scale for ds, "shift_dbias_h" moves dbias_h
+    by one key-grid row."""
+    q, k, v, g = (t.double() for t in (q, k, v, g))
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    s = (torch.einsum("bhqd,bhkd->bhqk", q, k) * scale).reshape(
+        b, h, sq, sk // kw, kw) + bias_h.double()[..., :, None] \
+        + bias_w.double()[..., None, :]
+    p = torch.exp(s.reshape(b, h, sq, sk) - lse.double()[..., None])
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g, v)
+              - delta.double()[..., None])
+    grid = ds.reshape(b, h, sq, sk // kw, kw)
+    dbh, dbw = grid.sum(-1), grid.sum(-2)
+    if fault == "shift_dbias_h":
+        dbh = torch.roll(dbh, 1, -1)
+    ds = ds * (2 * scale if fault == "double_scale" else scale)
+    p, ds = (t.to(torch.bfloat16).double() for t in (p, ds))
+    ds_q, ds_k = ds.clone(), ds.clone()
+    if fault == "drop_key_tile":
+        ds_q[..., 64:128] = 0
+    if fault == "drop_query_tile":
+        ds_k[..., 64:128, :] = 0
+    return (torch.einsum("bhqk,bhkd->bhqd", ds_q, k).to(torch.bfloat16),
+            dbh.float(), dbw.float(),
+            torch.einsum("bhqk,bhqd->bhkd", ds_k, q).to(torch.bfloat16),
+            torch.einsum("bhqk,bhqd->bhkd", p, g).to(torch.bfloat16))
+
+
+def _gb_plain_and_terms(args):
+    refs = grid_bias_bwd_dq_reference(*args) + \
+        grid_bias_bwd_dkv_reference(*args)
+    terms = dict(zip(("dq", "dk", "dv"),
+                     grid_bias_bwd_abs_terms_reference(*args)))
+    return dict(zip(GB_OUTPUTS, refs)), terms
+
+
+@pytest.mark.parametrize("grid", GB_BOUND_GRIDS)
+def test_grid_bias_bound_admits_the_kernels_rounding(grid):
+    """A kernel that rounds as the tensor-core grid-bias pair does passes
+    the card's bound against the f32 plain versions at every output: dq, dk
+    and dv under bwd_error's, the f32 bias gradients under 2e-4·max|ref|;
+    Σ|terms| is at least |Σ terms| elementwise."""
+    args = _gb_bwd_problem(*grid, sum(grid))
+    refs, terms = _gb_plain_and_terms(args)
+    for name, got in zip(GB_OUTPUTS, _rounded_gb_backward(*args)):
+        if name in terms:
+            assert bool((terms[name] >= refs[name].abs() * (1 - 1e-5)
+                         - 1e-7).all()), name
+        chip_smoke.gb_bwd_error(got, refs[name], f"{grid} {name}",
+                                terms.get(name))
+
+
+def test_grid_bias_terms_without_a_bias_are_the_flash_terms():
+    args = list(_gb_bwd_problem(4, 24, 1))
+    args[3], args[4] = torch.zeros_like(args[3]), torch.zeros_like(args[4])
+    q, k, v, _, _, kw, g, _, delta, scale = args
+    _, lse = attention_reference(q.float(), k.float(), v.float())
+    args[7] = lse
+    want = flash_bwd_abs_terms_reference(q, k, v, g, lse, delta, scale)
+    for got, w in zip(grid_bias_bwd_abs_terms_reference(*args), want):
+        torch.testing.assert_close(got, w)
+
+
+@pytest.mark.parametrize("fault,out,factor", [("drop_key_tile", "dq", 50),
+                                              ("drop_query_tile", "dk", 50),
+                                              ("double_scale", "dq", 50),
+                                              ("double_scale", "dk", 50),
+                                              ("shift_dbias_h", "dbias_h",
+                                               1000)])
+def test_grid_bias_bound_refuses_a_broken_kernel(fault, out, factor):
+    """At the 16 × 16 grid each fault fails its output's bound by at least
+    ``factor`` at its worst element: a dropped 64-key tile in dq (106×
+    measured), a dropped 64-query tile in dk (92×), a doubled scale (104×
+    in dq, 106× in dk) by 50×; dbias_h shifted by one key-grid row (5085×)
+    by 1000×. The rounding model passes at 0.42-0.57 of the bound."""
+    args = _gb_bwd_problem(16, 16, 32)
+    refs, terms = _gb_plain_and_terms(args)
+    got = dict(zip(GB_OUTPUTS, _rounded_gb_backward(*args, fault=fault)))
+    with pytest.raises(AssertionError, match="over its bound") as err:
+        chip_smoke.gb_bwd_error(got[out], refs[out], fault, terms.get(out))
+    worst = float(re.search(r"([\d.]+)× at worst", str(err.value)).group(1))
+    assert worst >= factor, str(err.value)
