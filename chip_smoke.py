@@ -12,8 +12,13 @@ Phases, each reported on one line:
    and three times (median of timed launches after warm-up): the kernel's,
    the plain version's and, where one PyTorch call computes the same
    function, that call's; beside them the least time the card could take
-   (bytes over 3.35 TB/s or operations over the peak rate of their type);
-   then the four backward kernels (flash dq and dkv at DiT-base's self and
+   (bytes over 3.35 TB/s or operations over the peak rate of their type).
+   The tensor-core forward kernel at every main-path flash shape and the
+   grid-bias forward at SAM-H's 64 × 64 key grid (timed) and at the small
+   SAM's 32 × 32 and a 48 × 48 one (checked): within a bound from its bf16
+   rounding of p, no worse than twice SDPA's error, bit for bit the same
+   on a second launch, no register spills in any instance (ptxas); then
+   the four backward kernels (flash dq and dkv at DiT-base's self and
    cross shapes and a ragged-query shape, timed, and at the other head dims,
    checked; the grid-bias pair at SAM-H's global blocks, timed, and at the
    small SAM's 32 × 32 key grid and a 48 × 48 one, checked) with a
@@ -101,7 +106,7 @@ KERNELS = {
                           source="regen3d_tpu_torch/csrc/flash_bwd.cu",
                           replaces="regen3d_tpu/ops/attention.py:203"),
     "flash_gb_fwd": dict(route="cuda",
-                         source="regen3d_tpu_torch/csrc/flash_gb_fwd.cu",
+                         source="regen3d_tpu_torch/csrc/flash_fwd.cu",
                          replaces="regen3d_tpu/ops/attention.py:355"),
     "flash_gb_bwd_dq": dict(route="cuda",
                             source="regen3d_tpu_torch/csrc/flash_bwd.cu",
@@ -210,12 +215,20 @@ def gb_bwd_error(got, ref, name, terms=None):
     return float(err.max()), ref_max
 
 
-def device_top(prof, n):
+def device_top(fn, n):
     """(total ms, [(ms, name, launches)] of the n largest) of the device
-    time of each kernel (or copy) in a torch.profiler window, by name, names
-    cut to 80 characters. The CPU-side operations that launched them are
-    left out: their self device time is their kernels' again."""
+    time of each kernel (or copy) in one call of ``fn`` under
+    torch.profiler, by name, names cut to 80 characters. The CPU-side
+    operations that launched them are left out: their self device time is
+    their kernels' again."""
+    import torch
     from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
 
     rows = []
     for e in prof.key_averages():
@@ -270,115 +283,79 @@ def phase_device(kernels):
         kernels.lib(name)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{sorted(built) or 'nothing (up to date)'}")
+    spills = []
     for name, text in kernels.BUILD_LOG.items():
-        fn = ""   # the kernel (and head dim) ptxas is reporting on
+        fn = ""   # the kernel instance ptxas is reporting on
         for line in text.splitlines():
             m = re.search(r"entry function '.*?([A-Za-z_]+_kernel)"
-                          r"(IL[bi](\d+)E)?", line)
+                          r"(I(?:L[bi]\d+E)+E)?", line)
             if m:
-                fn = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+                fn = m.group(1) + ptxas_args(m.group(2))
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {fn}: {line.strip()}")
+                if fn.startswith("fwd_kernel") and re.search(
+                        r"[1-9]\d* bytes spill", line):
+                    spills.append(fn)
+    if spills:
+        raise AssertionError(f"the forward kernel spills registers: {spills}")
     return smi
+
+
+def ptxas_args(mangled):
+    """'<64, 0, false>' from a mangled template argument list such as
+    'ILi64ELi0ELb0EE' (int and bool arguments); '' for none."""
+    if not mangled:
+        return ""
+    args = [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"L([bi])(\d+)E", mangled)]
+    return f"<{', '.join(args)}>"
 
 
 def phase_kernels(results):
     """Each kernel against its plain version at the main paths' shapes."""
     import torch
-    import torch.nn.functional as F
 
-    from regen3d_tpu_torch.ops import attention as att
     from regen3d_tpu_torch.ops import silhouette_kernel as sk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # flash: bf16 inputs, plain version in f32 on the same bf16 values.
-    # o tolerance: bf16 rounding of the output (2^-8 relative) plus 2e-3 for
-    # f32 accumulation in another order; lse: f32 sums, 1e-4.
-    worst_o = worst_lse = 0.0
+    tol = ("o: elementwise 2^-8*(|o_ref| + sum|terms|) + 2e-3 (p rounded to "
+           "bf16 once before p*v, o once), max error at most 2x SDPA's "
+           "against the same plain version; lse: 1e-4; two launches "
+           "bit-identical")
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     work = [0, 0]   # operations and bytes over all shapes
-    for b, h, sq, skv, d in FLASH_SHAPES:
-        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
-        k, v = (torch.randn((b, h, skv, d), generator=gen, device="cuda")
-                for _ in range(2))
-        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        with torch.no_grad():
-            o, lse = att.flash_attention_fwd(q, k, v)
-            o_ref, lse_ref = att.attention_reference(q.float(), k.float(),
-                                                     v.float())
-        torch.cuda.synchronize()
-        err_o = (o.float() - o_ref).abs()
-        tol = 2.0 ** -8 * o_ref.abs() + 2e-3
-        shape = (b, h, sq, skv, d)
-        if not bool((err_o <= tol).all()):
-            raise AssertionError(f"flash {shape}: o error {err_o.max():.3e} "
-                                 f"over bound")
-        err_lse = float((lse - lse_ref).abs().max())
-        if err_lse > 1e-4:
-            raise AssertionError(f"flash {shape}: lse error {err_lse:.3e}")
-        worst_o = max(worst_o, float(err_o.max()))
-        worst_lse = max(worst_lse, err_lse)
-        t_k = cuda_ms(lambda: att.flash_attention_fwd(q, k, v))
-        t_p = cuda_ms(lambda: att.attention_reference(q.float(), k.float(),
-                                                      v.float()), reps=5)
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        ops, nbytes = attention_work(b, h, sq, skv, d)
-        work[0] += ops
-        work[1] += nbytes
-        t_b, by = bound(ops, nbytes, "bf16")
-        for key, t in zip(("ms", "plain_ms", "library_ms"), (t_k, t_p, t_l)):
-            tot[key] += t
-        log(f"flash_fwd {shape}: o err {err_o.max():.3e}, lse err "
-            f"{err_lse:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-            f"sdpa {t_l:.3f} ms, bound {t_b:.4f} ms ({by})")
+    worst = dict(o=0.0, lse=0.0)
+    for shape in FLASH_SHAPES:
+        r = fwd_case(shape, gen)
+        for key in tot:
+            tot[key] += r["ms"][key]
+        work[0] += r["work"][0]
+        work[1] += r["work"][1]
+        worst["o"] = max(worst["o"], r["err"])
+        worst["lse"] = max(worst["lse"], r["err_lse"])
     t_b, by = bound(*work, "bf16")
     results["flash_fwd"] = dict(
-        max_abs_err=worst_o, max_abs_err_lse=worst_lse,
-        tolerance="o: 2^-8*|o| + 2e-3 (bf16 output); lse: 1e-4",
+        max_abs_err=worst["o"], max_abs_err_lse=worst["lse"], tolerance=tol,
         bound_ms=t_b, bound_by=by,
         timed=f"sum over the {len(FLASH_SHAPES)} main-path shapes "
               f"(B, H, Sq, Sk, D) {FLASH_SHAPES}", **tot)
 
-    # grid-bias flash at SAM-H's global blocks, non-zero bias factors of the
-    # size SAM's rel-pos tables give; same tolerance and reasons as flash
-    b, h, s, d = GB_SHAPE
-    kh, kw = GB_GRID
-    q, k, v = (torch.randn(GB_SHAPE, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    bias_h = 0.5 * torch.randn((b, h, s, kh), generator=gen, device="cuda")
-    bias_w = 0.5 * torch.randn((b, h, s, kw), generator=gen, device="cuda")
-    with torch.no_grad():
-        o, lse = att.flash_attention_grid_bias_fwd(q, k, v, bias_h, bias_w, kw)
-        o_ref, lse_ref = att.grid_bias_reference(q.float(), k.float(),
-                                                 v.float(), bias_h, bias_w, kw)
-    torch.cuda.synchronize()
-    err_o = (o.float() - o_ref).abs()
-    if not bool((err_o <= 2.0 ** -8 * o_ref.abs() + 2e-3).all()):
-        raise AssertionError(f"flash_gb {GB_SHAPE}: o error "
-                             f"{err_o.max():.3e} over bound")
-    err_lse = float((lse - lse_ref).abs().max())
-    if err_lse > 1e-4:
-        raise AssertionError(f"flash_gb {GB_SHAPE}: lse error {err_lse:.3e}")
-    # the library yardstick gets the (S, S) bias built beforehand, untimed
-    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, h, s, s) \
-        .to(torch.bfloat16)
-    t_k = cuda_ms(lambda: att.flash_attention_grid_bias_fwd(
-        q, k, v, bias_h, bias_w, kw))
-    t_p = cuda_ms(lambda: att.grid_bias_reference(
-        q.float(), k.float(), v.float(), bias_h, bias_w, kw), reps=5)
-    t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         attn_mask=mask))
-    del mask
-    t_b, by = bound(*attention_work(b, h, s, s, d, kh + kw), "bf16")
-    log(f"flash_gb_fwd {GB_SHAPE} grid {GB_GRID}: o err {err_o.max():.3e}, "
-        f"lse err {err_lse:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-        f"sdpa with the bias built beforehand (untimed) {t_l:.3f} ms, bound "
-        f"{t_b:.4f} ms ({by})")
+    # grid-bias flash at SAM-H's global blocks (timed) and at the other key
+    # grids (checked), non-zero bias factors of the size SAM's rel-pos
+    # tables give; SDPA gets the (S, S) bias in bf16, built beforehand
+    r = fwd_case(GB_SHAPE[:3] + GB_SHAPE[2:], gen, GB_GRID)
+    errs = dict(o=r["err"], lse=r["err_lse"])
+    for shape, grid in GB_BWD_CHECKS:
+        c = fwd_case(shape[:3] + shape[2:], gen, grid, timed=False)
+        errs["o"] = max(errs["o"], c["err"])
+        errs["lse"] = max(errs["lse"], c["err_lse"])
     results["flash_gb_fwd"] = dict(
-        max_abs_err=float(err_o.max()), max_abs_err_lse=err_lse,
-        tolerance="o: 2^-8*|o| + 2e-3 (bf16 output); lse: 1e-4", ms=t_k,
-        plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by)
-    del q, k, v, o_ref
+        max_abs_err=errs["o"], max_abs_err_lse=errs["lse"], tolerance=tol,
+        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+        library="F.scaled_dot_product_attention with the (S, S) bf16 bias "
+                "built beforehand (untimed)",
+        timed=f"timed at {GB_SHAPE} grid {GB_GRID}; errors also over "
+              f"{GB_BWD_CHECKS}", **r["ms"])
 
     # silhouette: the phase-6 batch at its initial pose
     batch, cam, cfg, _gt = phase6_problem()
@@ -458,6 +435,109 @@ def phase_kernels(results):
                                      bound_ms=b_b[0], bound_by=b_b[1],
                                      library_ms=None,
                                      tolerance="elementwise 2e-5 * sum|terms|")
+
+
+def fwd_error(o, o_ref, terms, lse, lse_ref, name):
+    """(max abs o error, max abs lse error) of a flash forward against its
+    f32 plain version; raises unless, elementwise,
+    |o − o_ref| ≤ 2⁻⁸·(|o_ref| + terms) + 2e-3, where ``terms`` is the
+    element's Σ|terms| = Σ_k p·|v| (ops.attention.attention_abs_terms_reference),
+    and |lse − lse_ref| ≤ 1e-4. The kernel rounds p to bf16 once before
+    p·v, as SDPA does: each term moves by at most 2⁻⁸ of its magnitude, so o
+    by at most 2⁻⁸·Σ|terms|; o is rounded to bf16 once, 2⁻⁸·|o_ref|; 2e-3
+    covers the f32 sums in another order. 2⁻⁸·|o_ref| + 2e-3 alone, the
+    bound of the f32 CUDA-core kernel, does not admit p's rounding where
+    few keys carry o: a model of the rounding exceeds it 1.42× at
+    (8, 8, 4096, 11, 16). lse sums the f32 p. A dropped 64-key tile, a
+    doubled scale, a missing rescale of o or lse in log₂ moves an element
+    by many times the bound."""
+    err = (o.float() - o_ref).abs()
+    tol = 2.0 ** -8 * (o_ref.abs() + terms) + 2e-3
+    err_lse = (lse - lse_ref).abs()
+    worst = max(float((err / tol).max()), float(err_lse.max()) / 1e-4)
+    if worst > 1:
+        raise AssertionError(f"{name}: o error {float(err.max()):.3e}, lse "
+                             f"error {float(err_lse.max()):.3e}, over its "
+                             f"bound, {worst:.2f}× at worst")
+    return float(err.max()), float(err_lse.max())
+
+
+def fwd_case(shape, gen, grid=None, timed=True):
+    """The flash forward kernel at one (B, H, Sq, Sk, D), with the grid
+    bias if ``grid`` is a (kh, kw) key grid (Sk = kh·kw, bias factors
+    N(0, 0.5²)): o and lse against the f32 plain version under fwd_error's
+    bound, o's error at most twice SDPA's against the same plain version
+    (SDPA given the (S, S) bias in bf16), a second launch compared bit for
+    bit; if ``timed``, the times of the kernel, the plain version and SDPA
+    and the least time the card could take, logged with TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from regen3d_tpu_torch.ops import attention as att
+
+    b, h, sq, skv, d = shape
+    q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device="cuda")
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    if grid is None:
+        args, mask, what = (q, k, v), None, f"flash_fwd {shape}"
+        kernel, plain = att.flash_attention_fwd, att.attention_reference
+        terms_fn = att.attention_abs_terms_reference
+        ops, nbytes = attention_work(*shape)
+    else:
+        kh, kw = grid
+        bias = [0.5 * torch.randn((b, h, sq, n), generator=gen, device="cuda")
+                for n in grid]
+        args = (q, k, v, *bias, kw)
+        mask = (bias[0][..., :, None] + bias[1][..., None, :]).reshape(
+            b, h, sq, skv).to(torch.bfloat16)
+        what = f"flash_gb_fwd {shape} grid {grid}"
+        kernel, plain = att.flash_attention_grid_bias_fwd, \
+            att.grid_bias_reference
+        terms_fn = att.grid_bias_abs_terms_reference
+        ops, nbytes = attention_work(*shape, kh + kw)
+    def up(xs):   # the bf16 tensors in f32, for the plain version
+        return tuple(t.float() if isinstance(t, torch.Tensor)
+                     and t.dtype == torch.bfloat16 else t for t in xs)
+
+    f32 = up(args)
+    with torch.no_grad():
+        o, lse = kernel(*args)
+        o2, lse2 = kernel(*args)
+        o_ref, lse_ref = plain(*f32)
+        terms = terms_fn(*f32)
+        o_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    err, err_lse = fwd_error(o, o_ref, terms, lse, lse_ref, what)
+    err_lib = float((o_lib.float() - o_ref).abs().max())
+    if err > 2 * err_lib:
+        raise AssertionError(f"{what}: o error {err:.3e} over twice SDPA's "
+                             f"{err_lib:.3e}")
+    out = dict(err=err, err_lse=err_lse, sdpa_err=err_lib, work=(ops, nbytes),
+               bound=bound(ops, nbytes, "bf16"))
+    # the f32 CUDA-core kernel's bound, which does not admit p's rounding
+    # where few keys carry o: its worst ratio, for the record
+    old = float(((o.float() - o_ref).abs()
+                 / (2.0 ** -8 * o_ref.abs() + 2e-3)).max())
+    line = (f"{what}{'' if timed else ' (check only)'}: o err {err:.3e} "
+            f"(SDPA's {err_lib:.3e}; {old:.2f}x of 2^-8*|o_ref| + 2e-3), "
+            f"lse err {err_lse:.3e}; bit-identical twice")
+    del o_ref, lse_ref, terms, o_lib, f32
+    if timed:
+        with torch.no_grad():
+            t_k = cuda_ms(lambda: kernel(*args))
+            t_p = cuda_ms(lambda: plain(*up(args)), reps=5)
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask))
+        out["ms"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l)
+        line += (f"; kernel {t_k:.3f} ms ({ops / t_k / 1e9:.1f} TFLOP/s), "
+                 f"plain {t_p:.3f} ms, sdpa {t_l:.3f} ms, bound "
+                 f"{out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    log(line)
+    return out
 
 
 def sdpa_bwd_ms(q, k, v, g, mask=None):
@@ -1002,11 +1082,13 @@ def phase_scene(results, runs=1):
         model(args[0][None])
         torch.cuda.synchronize()
         t_vggt = time.perf_counter() - t0
+        dev_vggt = device_top(lambda: model(args[0][None]), 0)[0]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"scene_step VGGT-1B 518² x2 frames + 8 objects x 50 fit iters @ "
         f"518² (object_chunk=2): first {first:.2f} s, median of {runs} "
         f"{ts[len(ts) // 2]:.2f} s {[round(t, 3) for t in ts]}; VGGT forward "
-        f"alone {t_vggt:.3f} s; peak {peak:.1f} GiB; valid points "
+        f"alone {t_vggt:.3f} s ({dev_vggt:.2f} ms of device time under "
+        f"torch.profiler, one more call); peak {peak:.1f} GiB; valid points "
         f"{int(res.points_valid.sum())}; launches {counts}")
     results["scene_launches"] = counts
     results["scene_sec"] = ts[len(ts) // 2]
@@ -1126,6 +1208,7 @@ def phase_sam(results, runs=3):
 
     def timed(fn, key):
         def call(*args):
+            seen[key + "_args"] = args
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*args)
@@ -1176,13 +1259,16 @@ def phase_sam(results, runs=3):
             counts["flash_fwd"] == 0:
         raise AssertionError(f"phase 1 launches {counts}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        dev_enc = device_top(lambda: encode(*seen["encode_s_args"]), 0)[0]
     med = lambda xs: sorted(xs)[len(xs) // 2]
     areas = [int(d.mask.sum()) for d in dets]
     log(f"phase 1 SAM-H 1024² (32 blocks, width 1280) on a 960x1280 image, "
         f"8 boxes, 2 decoder passes: detect_and_segment median of {runs} "
         f"{med(ts):.3f} s {[round(t, 4) for t in ts]}; encode median "
         f"{1e3 * med(seen['encode_s']):.2f} ms "
-        f"{[round(1e3 * t, 2) for t in seen['encode_s']]}; decode per pass "
+        f"{[round(1e3 * t, 2) for t in seen['encode_s']]} ({dev_enc:.2f} ms of "
+        f"device time under torch.profiler, one more encode); decode per pass "
         f"median {1e3 * med(seen['decode_s']):.2f} ms "
         f"{[round(1e3 * t, 2) for t in seen['decode_s']]}; peak {peak:.2f} "
         f"GiB; mask areas {areas}; launches {counts}")
@@ -1379,8 +1465,13 @@ def phase_dit(results, steps=30, batch=8, cond_len=257):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
+    dev_sample = device_top(lambda: sample(model, cond_s, num_steps=4,
+                                           guidance_scale=5.0,
+                                           generator=gen), 0)[0]
     log(f"DiT-base sample: 4 steps, guidance 5.0, B={n_obj}, {cond_len} cond "
-        f"tokens: {dt:.3f} s; latents {tuple(lat.shape)}; launches {counts}")
+        f"tokens: {dt:.3f} s ({dev_sample:.2f} ms of device time under "
+        f"torch.profiler, one more call); latents {tuple(lat.shape)}; "
+        f"launches {counts}")
     if tuple(lat.shape) != (n_obj, cfg.latent_tokens, cfg.latent_dim) or \
             not bool(lat.isfinite().all()):
         raise AssertionError("DiT-base sample: wrong shape or non-finite")
@@ -1487,13 +1578,11 @@ def phase_sam_grad(results):
     # where the VJP's device time goes: one more call under torch.profiler
     # (after the counts were read), its ten device operations with the most
     # self time
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    def vjp():
         emb = model.encode(img)
         torch.autograd.grad((emb.float() * cot).sum(), enc_params)
-        torch.cuda.synchronize()
-    total, top = device_top(prof, 10)
+
+    total, top = device_top(vjp, 10)
     split = "; ".join(f"{name} {ms:.2f} ms ({ms / total:.1%}, {c}x)"
                       for ms, name, c in top) if total > 0 else \
         "no device time recorded"

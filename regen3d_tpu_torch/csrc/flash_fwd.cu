@@ -1,177 +1,466 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out, f32 inside.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores: plain
+// (head dims 16, 32, 64 and 128) and with SAM's factored key-grid bias
+// (D = 80). bf16 q, k, v and o; f32 bias factors; f32 row logsumexp in the
+// natural log, which the backward kernels (flash_bwd.cu) read.
 //
-// Replaces: regen3d_tpu/ops/attention.py::_flash_fwd_kernel (Pallas, TPU),
-// reached through _flash_forward and flash_attention.
+// Replaces: regen3d_tpu/ops/attention.py::_flash_fwd_kernel (reached through
+// _flash_forward and flash_attention) and ::_flash_fwd_gb_kernel (reached
+// through _gb_fwd_impl and flash_attention_grid_bias) (Pallas, TPU): both
+// are instances of fwd_kernel here.
 //
-// What bounds it on the H100: at the VGGT-1B shapes (D = 64, S = 1370 to
-// 2748) attention is compute-bound (4·S²·D flops against 4·S·D bytes per
-// head), so the bound is the arithmetic rate. This first version does the
-// two products on the CUDA cores in f32, not on the tensor cores, so it is
-// bound by shared-memory loads feeding the FMAs, far below the bf16 tensor
-// core peak; mma.sync / wgmma tiles are the next step.
+// Per (batch·head), with keys on a (kh, kw) grid for the grid bias
+// (Sk = kh·kw, key k at row k / kw and column k % kw):
+//   s[q, k] = scale·q·k (+ bias_h[q, k / kw] + bias_w[q, k % kw]),
+//   o = softmax(s)·v,   lse[q] = log Σ_k exp(s[q, k]).
 //
-// What the design does about it: one block per (batch·head, 64-row q tile);
-// K and V stream through shared memory in 64-row tiles, so the (Sq, Sk)
-// score matrix never exists in device memory and each K/V tile is read once
-// per q tile. Four threads own one query row: each keeps 16 scores and D/4
-// output accumulators in registers, the row max and sum reduce with two warp
-// shuffles, and the online softmax rescales the accumulators per tile.
-// Shared rows are padded by one float so the four column phases and the
-// eight rows of a warp fall in distinct banks. Ragged Sq and Sk are masked
-// in the kernel (keys at or past Sk score -1e30, as in the Pallas kernel);
-// the caller pads nothing.
+// What bounds it on the H100: 4·Sq·Sk·D operations per head against
+// 2·(2·Sq + 2·Sk)·D bytes (q, k and v read, o written), so at VGGT-1B's and
+// DiT-base's shapes (S = 257 to 2748, D = 64) and SAM-H's global blocks
+// ((1, 16, 4096, 80)) operations bound it, the bf16 tensor cores' rate. At
+// the mask decoder's 11-token shapes the bytes and the launch do.
 //
-// Head dims: 64 and 128 (VGGT), 32 and 16 (SAM's mask decoder: token
-// self-attention, and the cross-attentions at half width). The decoder's
-// 11 prompt tokens are a ragged tail inside a single 64-key tile, both as
-// keys (Sq = 4096 image tokens, Sk = 11) and as queries (Sq = 11, the other
-// 53 rows of the q tile are masked out of the stores).
+// The design, the backward pair's (flash_bwd.cu) turned to the forward:
+// * One block per (batch·head, BM query rows), four warps. A warp owns MT
+//   m16 tiles of rows: 32 rows (MT = 2, 128-row blocks) at D ≤ 64, so that
+//   each K and V fragment feeds two products (245 registers at D = 64, no
+//   spills); 16 rows (64-row blocks) at D = 80 and 128, where two m16
+//   tiles' o accumulators, Q fragments and s do not fit in 255 registers
+//   (D = 80 spilled 120 bytes).
+// * The Q fragments are loaded once by ldmatrix and stay in registers for
+//   the whole key loop. The block's Q tile in shared memory is used again
+//   only to stage o.
+// * K and V stream by cp.async into a two-stage ring of 64-key bf16 tiles
+//   (swizzled; Tile<80>'s padded rows at D = 80): the next tile is in flight
+//   while the current one is multiplied. Keys past Sk are zero-filled by
+//   the copy and masked in registers (p = 0); query rows past Sq are
+//   zero-filled and never stored. The caller pads nothing.
+// * s = q·kᵀ by mma.sync.m16n8k16, bf16 × bf16 → f32, q and k unscaled: the
+//   products are exact in f32. The scale, times log2(e) for exp2, is
+//   applied to the f32 s fragment (the bias added there in f32), so s
+//   differs from the plain version only in the order of its sums.
+// * The online softmax runs on the f32 C fragments: each row's max and sum
+//   over its four lanes by quad shuffles, the running max m and sum l (of
+//   the f32 p) in registers, o rescaled by alpha = exp2(m_old − m_new).
+// * p becomes bf16 in registers: two neighbouring m16n8 C tiles are the A
+//   fragment of p·v, so p never touches shared memory; v is the B operand
+//   through ldmatrix.trans.
+// * Rounding: p is rounded to bf16 once, where the C fragment becomes an A
+//   fragment, and o once, normalised, at the end. Everything else is f32.
+//   o leaves through the warp's own rows of the Q tile with 16-byte stores;
+//   lse = (m + log2 l)·ln 2.
+// * Short query sets (Sq ≤ 16 with more than one key tile, such as the mask
+//   decoder's 11 prompt tokens against 4096 image tokens): one tile of rows
+//   must not walk every key alone, so the block's four warps share its 16
+//   rows and split the keys. A stage of the ring holds four 64-key tiles,
+//   one per warp; each warp keeps its own (m, l, o), and warp 0 combines
+//   the four through shared memory in a fixed order, so two launches give
+//   the same bits. (D = 128 does not split: four 64-key tiles of K and V
+//   in two stages would need 256 KB.)
+// * The grid bias: the (S, S) bias never exists. Each f32 s element adds
+//   bias_h[q, k / kw] + bias_w[q, k % kw] before the max, in fragment
+//   order, as the backward's dq kernel does. At kw = 64 (SAM-H's 64 × 64
+//   grid) a 64-key tile is key-grid row t: bias_w comes from the block's
+//   [BM][72] f32 slab as float2, and the tile's column t of bias_h rides the
+//   ring with K and V, one value a row. At any other grid (the small SAM's
+//   32 × 32, a kw that does not divide 64) the block keeps its rows of both
+//   factors in shared memory and each element indexes them.
+//
+// Shared memory passes 48 KB, so the launches opt in with
+// cudaFuncSetAttribute.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tc_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // keys per shared-memory tile
-constexpr int NT = 256;           // threads: 4 per query row
-constexpr float NEG = -1e30f;     // the Pallas kernel's masked logit
+// bias policies
+constexpr int NO_BIAS = 0;    // plain attention
+constexpr int GRID_ROW = 1;   // grid bias, kw = 64: a key tile is a grid row
+constexpr int GRID_ANY = 2;   // grid bias, any (kh, kw) with kh·kw = Sk
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [BQ][D + 1], pre-scaled
-  float* ks = qs + BQ * (D + 1);    // [BK][D + 1]
-  float* vs = ks + BK * (D + 1);    // [BK][D]
-  float* ps = vs + BK * D;          // [BQ][BK + 1] probabilities
+constexpr int FWD_BN = 64;    // keys of a warp's tile
+constexpr float LN2 = 0.6931471805599453f;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;           // query row within the tile
-  const int c4 = tid & 3;           // column phase: keys c4 + 4j, dims c4 + 4i
-  const size_t qoff = (size_t)bh * sq * D;
-  const size_t koff = (size_t)bh * sk * D;
+// The block's tiling at head dim D, SPLIT: the keys split across the warps.
+template <int D, bool SPLIT>
+struct Fwd {
+  static constexpr int MT = SPLIT || D > 64 ? 1 : 2;    // m16 tiles a warp
+  static constexpr int BM = SPLIT ? 16 : 4 * 16 * MT;   // query rows a block
+  static constexpr int QROWS = BM < TC_ROWS ? TC_ROWS : BM;  // Q tile rows
+  static constexpr int KT = SPLIT ? 4 * FWD_BN : FWD_BN;     // keys a stage
+};
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int rr = i / D, dd = i % D, qi = q0 + rr;
-    qs[rr * (D + 1) + dd] =
-        qi < sq ? __bfloat162float(q[qoff + (size_t)qi * D + dd]) * scale : 0.f;
+template <int D, int BIAS, bool SPLIT>
+__global__ void __launch_bounds__(TC_NT)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, GridBias bias, bf16* __restrict__ o,
+           float* __restrict__ lse, int sq, int sk, float scale) {
+  using F = Fwd<D, SPLIT>;
+  constexpr int MT = F::MT, BM = F::BM, KT = F::KT, BN = FWD_BN;
+  constexpr int S = Tile<D>::STRIDE;
+  constexpr bool GB = BIAS != NO_BIAS;
+  static_assert(!(GB && SPLIT), "the grid bias runs unsplit");
+  const int kh = bias.kh, kw = bias.kw;
+  const int wst = GB ? gb_dq_stride(kw) : 0;
+  const int hst = BIAS == GRID_ANY ? gb_dq_stride(kh) : 0;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [QROWS][S]
+  bf16* ks = qs + F::QROWS * S;                  // [2][KT][S] ring
+  bf16* vs = ks + 2 * KT * S;                    // [2][KT][S] ring
+  float* ws = reinterpret_cast<float*>(vs + 2 * KT * S);  // [BM][wst] bias_w
+  float* hs = ws + BM * wst;  // GRID_ANY: [BM][hst] bias_h; GRID_ROW: [2][BM]
+                              // bias_h columns on the ring
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int w0 = SPLIT ? 0 : warp * 16 * MT;  // the warp's first row
+  const int kofs = SPLIT ? warp * BN : 0;     // the warp's keys in a stage
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
+  const float* hb = GB ? bias.h + (size_t)bh * sq * kh : nullptr;
+
+  // column t of the block's bias_h rows, one 4-byte copy a row
+  auto load_hcol = [&](int stage, int t) {
+    for (int i = tid; i < BM; i += TC_NT) {
+      const bool in = q0 + i < sq;
+      cp_async4(hs + stage * BM + i, hb + (size_t)(in ? q0 + i : 0) * kh + t,
+                in);
+    }
+  };
+
+  // group 0: the Q tile and the bias slabs; group 1: the first K/V tile
+  load_tile<D, F::QROWS>(qs, qb, q0, sq, tid);
+  if constexpr (GB) {
+    for (int r = 0; r < BM; r += TC_ROWS) {
+      load_rows_f32(ws + r * wst, wst, bias.w + (size_t)bh * sq * kw, kw, 0,
+                    kw, q0 + r, sq, bias.vec, tid);
+      if constexpr (BIAS == GRID_ANY)
+        load_rows_f32(hs + r * hst, hst, hb, kh, 0, kh, q0 + r, sq, bias.vec,
+                      tid);
+    }
   }
+  cp_async_commit();
+  load_tile<D, KT>(ks, kb, 0, sk, tid);
+  load_tile<D, KT>(vs, vb, 0, sk, tid);
+  if constexpr (BIAS == GRID_ROW) load_hcol(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // every thread's copies of group 0 are in
 
-  constexpr int DPT = D / 4;
-  constexpr int KPT = BK / 4;
-  float acc[DPT];
+  uint32_t qa[MT][D / 16][4];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  float m = NEG, l = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      load_a<D>(qa[mt][kk], qs, w0 + mt * 16, kk * 16, lane);
 
-  for (int kb = 0; kb < sk; kb += BK) {
-    __syncthreads();  // every thread is done with the previous K/V/P tiles
-    for (int i = tid; i < BK * D; i += NT) {
-      const int rr = i / D, dd = i % D, ki = kb + rr;
-      float kv = 0.f, vv = 0.f;
-      if (ki < sk) {
-        kv = __bfloat162float(k[koff + (size_t)ki * D + dd]);
-        vv = __bfloat162float(v[koff + (size_t)ki * D + dd]);
+  float acc[MT][D / 8][4];
+  float m[MT][2], l[MT][2];  // running max (log2 units) and sum, rows lo, hi
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+
+  const int nt = (sk + KT - 1) / KT;
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & 1;
+    if (t + 1 < nt) {  // the next K/V tile into the other stage
+      load_tile<D, KT>(ks + (st ^ 1) * KT * S, kb, (t + 1) * KT, sk, tid);
+      load_tile<D, KT>(vs + (st ^ 1) * KT * S, vb, (t + 1) * KT, sk, tid);
+      if constexpr (BIAS == GRID_ROW) load_hcol(st ^ 1, t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of this stage are in
+    const bf16* kt = ks + (st * KT + kofs) * S;
+    const bf16* vt = vs + (st * KT + kofs) * S;
+
+    // s = q·kᵀ, MT·16 × BN per warp; each K fragment feeds MT products
+    float s[MT][BN / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < BN; n += 16) {
+        uint32_t kf[4];
+        load_b_nk<D>(kf, kt, n, kk * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(s[mt][n / 8], qa[mt][kk], kf[0], kf[1]);
+          mma(s[mt][n / 8 + 1], qa[mt][kk], kf[2], kf[3]);
+        }
       }
-      ks[rr * (D + 1) + dd] = kv;
-      vs[rr * D + dd] = vv;
-    }
-    __syncthreads();
-
-    float s[KPT];
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) s[j] = 0.f;
-    const float* qrow = qs + r * (D + 1);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[j] += qd * ks[(c4 + 4 * j) * (D + 1) + d];
     }
 
-    float mx = NEG;
+    // the online softmax on the C fragments; p as bf16 A fragments,
+    // 8-column tiles 2i and 2i + 1 making k-step i
+    const int key0 = t * KT + kofs;
+    uint32_t pa[MT][BN / 16][4];
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      if (kb + c4 + 4 * j >= sk) s[j] = NEG;
-      mx = fmaxf(mx, s[j]);
+    for (int mt = 0; mt < MT; ++mt) {
+      const int rl = w0 + mt * 16 + g4;  // this lane's rows: rl and rl + 8
+      float bh_lo = 0.f, bh_hi = 0.f;
+      if constexpr (BIAS == GRID_ROW) {
+        bh_lo = hs[st * BM + rl];
+        bh_hi = hs[st * BM + rl + 8];
+      }
+      const float* w_lo = ws + rl * wst;
+      const float* w_hi = w_lo + 8 * wst;
+      const float* h_lo = hs + rl * hst;
+      const float* h_hi = h_lo + 8 * hst;
+      // logits in log2 units, keys at or past sk at −inf
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = j * 8 + t4 * 2;  // this lane's two key columns
+        float* x = s[mt][j];
+        if constexpr (BIAS == NO_BIAS) {
+          const int key = key0 + c;
+          const bool in0 = key < sk, in1 = key + 1 < sk;
+          x[0] = in0 ? x[0] * sl2 : -INFINITY;
+          x[1] = in1 ? x[1] * sl2 : -INFINITY;
+          x[2] = in0 ? x[2] * sl2 : -INFINITY;
+          x[3] = in1 ? x[3] * sl2 : -INFINITY;
+        } else if constexpr (BIAS == GRID_ROW) {  // sk = 64·kh: tiles whole
+          const float2 wl = *reinterpret_cast<const float2*>(w_lo + c);
+          const float2 wh = *reinterpret_cast<const float2*>(w_hi + c);
+          x[0] = fmaf(x[0], scale, bh_lo + wl.x) * LOG2E;
+          x[1] = fmaf(x[1], scale, bh_lo + wl.y) * LOG2E;
+          x[2] = fmaf(x[2], scale, bh_hi + wh.x) * LOG2E;
+          x[3] = fmaf(x[3], scale, bh_hi + wh.y) * LOG2E;
+        } else {
+          const int key = key0 + c;
+          const bool in0 = key < sk, in1 = key + 1 < sk;
+          const int m0 = in0 ? key / kw : 0, n0 = in0 ? key - m0 * kw : 0;
+          const int m1 = in1 ? (key + 1) / kw : 0;
+          const int n1 = in1 ? key + 1 - m1 * kw : 0;
+          x[0] = in0 ? fmaf(x[0], scale, h_lo[m0] + w_lo[n0]) * LOG2E
+                     : -INFINITY;
+          x[1] = in1 ? fmaf(x[1], scale, h_lo[m1] + w_lo[n1]) * LOG2E
+                     : -INFINITY;
+          x[2] = in0 ? fmaf(x[2], scale, h_hi[m0] + w_hi[n0]) * LOG2E
+                     : -INFINITY;
+          x[3] = in1 ? fmaf(x[3], scale, h_hi[m1] + w_hi[n1]) * LOG2E
+                     : -INFINITY;
+        }
+        mx_lo = fmaxf(mx_lo, fmaxf(x[0], x[1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(x[2], x[3]));
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float mn_lo = fmaxf(m[mt][0], mx_lo);
+      const float mn_hi = fmaxf(m[mt][1], mx_hi);
+      // a row that has met no key yet (a split warp past sk) keeps p = 0
+      const float b_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+      const float b_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+      const float a_lo = exp2f(m[mt][0] - b_lo);
+      const float a_hi = exp2f(m[mt][1] - b_hi);
+      m[mt][0] = mn_lo;
+      m[mt][1] = mn_hi;
+      float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p0 = exp2f(s[mt][j][0] - b_lo);
+        const float p1 = exp2f(s[mt][j][1] - b_lo);
+        const float p2 = exp2f(s[mt][j][2] - b_hi);
+        const float p3 = exp2f(s[mt][j][3] - b_hi);
+        rs_lo += p0 + p1;
+        rs_hi += p2 + p3;
+        pa[mt][j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+        pa[mt][j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l[mt][0] = l[mt][0] * a_lo + rs_lo;
+      l[mt][1] = l[mt][1] * a_hi + rs_hi;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[mt][j][0] *= a_lo;
+        acc[mt][j][1] *= a_lo;
+        acc[mt][j][2] *= a_hi;
+        acc[mt][j][3] *= a_hi;
+      }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const float p = expf(s[j] - m_new);
-      ps[r * (BK + 1) + c4 + 4 * j] = p;
-      rs += p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * alpha + rs;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    __syncwarp();  // the row's four lanes (one warp) wrote its P row
 
-    const float* prow = ps + r * (BK + 1);
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float p = prow[c];
-      const float* vr = vs + c * D + c4;
+    // o += p·v: depth = the tile's keys, columns = D; each V fragment feeds
+    // MT products
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += p * vr[4 * i];
+    for (int i = 0; i < BN / 16; ++i) {
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        uint32_t vf[4];
+        load_b_kn<D>(vf, vt, i * 16, n, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(acc[mt][n / 8], pa[mt][i], vf[0], vf[1]);
+          mma(acc[mt][n / 8 + 1], pa[mt][i], vf[2], vf[3]);
+        }
+      }
     }
+    __syncthreads();  // this stage is refilled by tile t + 2
   }
 
-  const int qi = q0 + r;
-  if (qi < sq) {
-    const float ls = fmaxf(l, 1e-30f);
-    __nv_bfloat16* orow = o + qoff + (size_t)qi * D + c4;
+  // each row's sum over its four lanes
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) orow[4 * i] = __float2bfloat16(acc[i] / ls);
-    if (c4 == 0) lse[(size_t)bh * sq + qi] = m + logf(ls);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 1);
+      l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 2);
+    }
+
+  if constexpr (SPLIT) {
+    // the four warps' (m, l, o) of the same 16 rows through the free ring,
+    // in fragment order; warp 0 combines them in warp order
+    float* cml = reinterpret_cast<float*>(ks);  // [4][32][4]: m, l lo and hi
+    float* cacc = cml + 4 * 32 * 4;              // [4][D / 8][32][4]
+    *reinterpret_cast<float4*>(cml + (warp * 32 + lane) * 4) =
+        make_float4(m[0][0], m[0][1], l[0][0], l[0][1]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float4*>(cacc + ((warp * (D / 8) + j) * 32 + lane) *
+                                            4) =
+          make_float4(acc[0][j][0], acc[0][j][1], acc[0][j][2], acc[0][j][3]);
+    __syncthreads();
+    if (warp != 0) return;
+    // warp 0 has met key 0, so its maxima, and the combined ones, are finite
+    float f[4][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mmax = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) mmax = fmaxf(mmax, cml[(w * 32 + lane) * 4 + h]);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        f[w][h] = exp2f(cml[(w * 32 + lane) * 4 + h] - mmax);
+        sum += cml[(w * 32 + lane) * 4 + 2 + h] * f[w][h];
+      }
+      m[0][h] = mmax;
+      l[0][h] = sum;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          sum += cacc[((w * (D / 8) + j) * 32 + lane) * 4 + e] * f[w][e >> 1];
+        acc[0][j][e] = sum;
+      }
+  }
+
+  // o = acc / l, rounded to bf16 once, out through the warp's rows of the Q
+  // tile (read by no other warp); lse in the natural log
+  float* lb = lse + (size_t)bh * sq;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float l_lo = fmaxf(l[mt][0], 1e-30f), l_hi = fmaxf(l[mt][1], 1e-30f);
+    const float i_lo = 1.f / l_lo, i_hi = 1.f / l_hi;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[mt][j][0] *= i_lo;
+      acc[mt][j][1] *= i_lo;
+      acc[mt][j][2] *= i_hi;
+      acc[mt][j][3] *= i_hi;
+    }
+    const int r0 = w0 + mt * 16;
+    store_rows<D>(acc[mt], qs, r0, o + (size_t)bh * sq * D, q0 + r0, sq,
+                  lane);
+    if (t4 == 0) {
+      const int r_lo = q0 + r0 + g4, r_hi = r_lo + 8;
+      if (r_lo < sq) lb[r_lo] = (m[mt][0] + log2f(l_lo)) * LN2;
+      if (r_hi < sq) lb[r_hi] = (m[mt][1] + log2f(l_hi)) * LN2;
+    }
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int sk, float scale,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+template <int D, int BIAS, bool SPLIT>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       GridBias gb, void* o, void* lse, int bh, int sq, int sk,
+                       float scale, cudaStream_t stream) {
+  using F = Fwd<D, SPLIT>;
+  size_t smem = sizeof(bf16) * (F::QROWS + 4 * F::KT) * Tile<D>::STRIDE;
+  if (BIAS != NO_BIAS) smem += sizeof(float) * F::BM * gb_dq_stride(gb.kw);
+  if (BIAS == GRID_ROW) smem += sizeof(float) * 2 * F::BM;
+  if (BIAS == GRID_ANY) smem += sizeof(float) * F::BM * gb_dq_stride(gb.kh);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<D, BIAS, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+  const dim3 grid((sq + F::BM - 1) / F::BM, bh);
+  fwd_kernel<D, BIAS, SPLIT><<<grid, TC_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), gb, static_cast<bf16*>(o),
       static_cast<float*>(lse), sq, sk, scale);
   return cudaGetLastError();
 }
 
+// the keys are split across the warps for a short query set
+template <int D>
+cudaError_t launch_plain(const void* q, const void* k, const void* v, void* o,
+                         void* lse, int bh, int sq, int sk, float scale,
+                         cudaStream_t stream) {
+  const GridBias none{nullptr, nullptr, nullptr, nullptr, 0, 0, false};
+  if constexpr (D != 128) {
+    if (sq <= 16 && sk > FWD_BN)
+      return launch_fwd<D, NO_BIAS, true>(q, k, v, none, o, lse, bh, sq, sk,
+                                          scale, stream);
+  }
+  return launch_fwd<D, NO_BIAS, false>(q, k, v, none, o, lse, bh, sq, sk,
+                                       scale, stream);
+}
+
 }  // namespace
 
-// q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d): contiguous bf16.
+// q, o (bh, sq, d); k, v (bh, sk, d): contiguous bf16, 16-byte aligned.
 // lse (bh, sq) f32. Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int sq, int sk,
                               int d, float scale, void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || bh > 65535)
+  if (bad_shape(bh, sq, sk) || misaligned(q, k, v, o, nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16) return (int)launch<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
-  if (d == 32) return (int)launch<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
-  if (d == 64) return (int)launch<64>(q, k, v, o, lse, bh, sq, sk, scale, st);
-  if (d == 128) return (int)launch<128>(q, k, v, o, lse, bh, sq, sk, scale, st);
+  switch (d) {
+    case 16: return (int)launch_plain<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case 32: return (int)launch_plain<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case 64: return (int)launch_plain<64>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case 128: return (int)launch_plain<128>(q, k, v, o, lse, bh, sq, sk, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// As flash_fwd_bf16, with the grid bias: bias_h (bh, sq, kh) and bias_w
+// (bh, sq, kw), contiguous f32, sk = kh·kw, d = 80.
+extern "C" int flash_gb_fwd_bf16(const void* q, const void* k, const void* v,
+                                 const void* bias_h, const void* bias_w,
+                                 void* o, void* lse, int bh, int sq, int sk,
+                                 int kh, int kw, int d, float scale,
+                                 void* stream) {
+  if (bad_shape(bh, sq, sk) || bad_grid(sk, kh, kw) || d != GB_D ||
+      misaligned(q, k, v, o, nullptr))
+    return (int)cudaErrorInvalidValue;
+  const GridBias gb{static_cast<const float*>(bias_h),
+                    static_cast<const float*>(bias_w), nullptr, nullptr, kh,
+                    kw, bias_vec(bias_h, bias_w, kh, kw)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kw == FWD_BN)
+    return (int)launch_fwd<GB_D, GRID_ROW, false>(q, k, v, gb, o, lse, bh, sq,
+                                                 sk, scale, st);
+  return (int)launch_fwd<GB_D, GRID_ANY, false>(q, k, v, gb, o, lse, bh, sq,
+                                               sk, scale, st);
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds) under
 ``build/kernels/`` at the repository root, at first use, and loaded with
-``ctypes``. The library name carries a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded.
+``ctypes``. The library name carries a hash of the source and of the
+``csrc/*.cuh`` headers it includes, so an edited source or header is rebuilt
+and a stale library is never loaded.
 
 Every C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,7 +27,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "flash_gb_fwd", "silhouette")
+SOURCES = ("flash_fwd", "flash_bwd", "silhouette")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,6 +47,10 @@ _SIGNATURES = {
     "flash_fwd": {
         # q, k, v, o, lse, bh, sq, sk, d, scale, stream
         "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # q, k, v, bias_h, bias_w, o, lse, bh, sq, sk, kh, kw, d, scale,
+        # stream
+        "flash_gb_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _P],
     },
     "flash_bwd": {
         # q, k, v, g, lse, delta, dq, bh, sq, sk, d, scale, stream
@@ -59,12 +65,6 @@ _SIGNATURES = {
         # q, k, v, bias_h, bias_w, g, lse, delta, dk, dv, bh, sq, sk, kh, kw,
         # d, scale, stream
         "flash_gb_bwd_dkv_bf16": [_P] * 10 + [_I] * 6 + [_F, _P],
-    },
-    "flash_gb_fwd": {
-        # q, k, v, bias_h, bias_w, o, lse, bh, sq, sk, kh, kw, d, scale,
-        # stream
-        "flash_gb_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _P],
     },
     "silhouette": {
         # nvalid, coeffs, valid, tile_uv, acc, n_blocks, n_tiles, k,
@@ -93,9 +93,23 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header, each once."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                              path.read_text(), re.M):
+            if CSRC / inc not in found:
+                found.append(CSRC / inc)
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> Dict[str, float]:

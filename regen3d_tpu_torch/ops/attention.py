@@ -4,15 +4,16 @@ regen3d_tpu/ops/attention.py::flash_attention and
 
 q, k, v are (B, H, S, D). Both ops are ``torch.autograd.Function``s.
 
-* :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu`` forward and,
-  under autograd, ``csrc/flash_bwd.cu``'s dq and dkv kernels backward
-  (bf16 in and out, tensor cores with f32 accumulation, p and scale·ds
-  rounded to bf16 before the second products, D ∈ {16, 32, 64, 128}).
-* :func:`flash_attention_grid_bias_fwd` launches ``csrc/flash_gb_fwd.cu``
-  forward and ``csrc/flash_bwd.cu``'s grid-bias dq and dkv kernels
-  backward (the same tensor-core design with SAM's factored key-grid bias,
-  the dq kernel also summing the bias gradients from the f32 ds; f32 bias
-  factors and bias gradients, D = 80).
+* :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``'s kernel
+  forward and, under autograd, ``csrc/flash_bwd.cu``'s dq and dkv kernels
+  backward (bf16 in and out, tensor cores with f32 accumulation, p (and
+  scale·ds backward) rounded to bf16 before the second products,
+  D ∈ {16, 32, 64, 128}).
+* :func:`flash_attention_grid_bias_fwd` launches the same forward kernel
+  with SAM's factored key-grid bias and ``csrc/flash_bwd.cu``'s grid-bias
+  dq and dkv kernels backward (the same tensor-core design, the dq kernel
+  also summing the bias gradients from the f32 ds; f32 bias factors and
+  bias gradients, D = 80).
 
 The backward follows the JAX package's: delta = Σ_d o·g in f32 (plain
 torch, outside the kernels, as JAX computes it), then the dq kernel gridded
@@ -60,6 +61,32 @@ def grid_bias_reference(q, k, v, bias_h, bias_w, kw: int,
     p = torch.exp(logits - lse[..., None])
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.to(q.dtype), lse
+
+
+def attention_abs_terms_reference(q, k, v, scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """Σ|terms| of each element of o in f32: Σ_k p·|v| (B, H, Sq, D), the
+    plain product on magnitudes. The forward kernel rounds p to bf16 before
+    p·v, which moves each term by a fraction of its magnitude;
+    chip_smoke.py's bound on the kernel is a fraction of these sums."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1),
+                        v.float().abs())
+
+
+def grid_bias_abs_terms_reference(q, k, v, bias_h, bias_w, kw: int,
+                                  scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """Σ|terms| of each element of the grid-bias forward's o in f32, as
+    :func:`attention_abs_terms_reference` with the factored bias in the
+    logits."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = _grid_logits(q, k, bias_h, bias_w, kw, scale)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1),
+                        v.float().abs())
 
 
 def _grid_logits(q, k, bias_h, bias_w, kw, scale):
@@ -289,7 +316,7 @@ def _gb_fwd(q, k, v, bias_h, bias_w, kw, s):
                          + _f32_named(bias_h=bias_h, bias_w=bias_w))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch("flash_gb_fwd", "flash_gb_fwd_bf16", "flash_gb_fwd", q, k, v,
+    _launch("flash_fwd", "flash_gb_fwd_bf16", "flash_gb_fwd", q, k, v,
             bias_h, bias_w, o, lse, *_gb_dims(q, k, kw, s))
     return o, lse
 

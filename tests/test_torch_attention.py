@@ -7,9 +7,10 @@ the Pallas custom VJP and against torch autograd of ``attention_reference``,
 atol = rtol = 5e-4 as the JAX package's own gradient test; the same for
 the grid-bias op over all five arguments, dbias_h and dbias_w compared apart
 from dq. Also the kernel wrapper's refusals on the CPU side, and the bounds
-``chip_smoke.bwd_error`` and ``chip_smoke.gb_bwd_error`` hold the card's
-flash and grid-bias backward kernels to, pinned from both sides with torch
-models of their bf16 rounding."""
+``chip_smoke.fwd_error``, ``chip_smoke.bwd_error`` and
+``chip_smoke.gb_bwd_error`` hold the card's forward kernel and its flash and
+grid-bias backward kernels to, pinned from both sides with torch models of
+their bf16 rounding."""
 
 import re
 
@@ -24,6 +25,7 @@ import chip_smoke
 from regen3d_tpu.ops.attention import flash_attention as jax_flash
 from regen3d_tpu.ops.attention import flash_attention_grid_bias
 from regen3d_tpu_torch.ops.attention import (
+    attention_abs_terms_reference,
     attention_reference,
     flash_attention,
     flash_attention_fwd,
@@ -32,6 +34,7 @@ from regen3d_tpu_torch.ops.attention import (
     flash_bwd_abs_terms_reference,
     flash_bwd_dkv_reference,
     flash_bwd_dq_reference,
+    grid_bias_abs_terms_reference,
     grid_bias_bwd_abs_terms_reference,
     grid_bias_bwd_dkv_reference,
     grid_bias_bwd_dq_reference,
@@ -363,3 +366,146 @@ def test_grid_bias_bound_refuses_a_broken_kernel(fault, out, factor):
         chip_smoke.gb_bwd_error(got[out], refs[out], fault, terms.get(out))
     worst = float(re.search(r"([\d.]+)× at worst", str(err.value)).group(1))
     assert worst >= factor, str(err.value)
+
+
+# (B, H, Sq, Sk, D) and key grid of the forward bound's checks: two keys at
+# D = 128 (VGGT's camera trunk), the mask decoder's 11 tokens against 70 keys
+# (split across the warps) and back, and SAM-H's head dim at a 4 × 24 grid
+# (kw neither 64 nor dividing it) and an 8 × 8 one
+FWD_BOUND_CASES = [((1, 2, 2, 2, 128), None), ((1, 2, 11, 70, 16), None),
+                   ((1, 2, 70, 11, 16), None), ((1, 2, 96, 96, 80), (4, 24)),
+                   ((1, 2, 64, 64, 80), (8, 8))]
+
+
+def _fwd_problem(shape, grid, seed):
+    """bf16 q, k, v and, for a (kh, kw) key grid, f32 bias factors drawn
+    N(0, 0.5²) as chip_smoke.py draws them; with the f32 plain (o, lse) and
+    Σ|terms| of o."""
+    rng = np.random.default_rng(seed)
+    b, h, sq, sk, d = shape
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, n, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for n in (sq, sk, sk))
+    up = (q.float(), k.float(), v.float())
+    if grid is None:
+        bias = None
+        (o, lse), terms = attention_reference(*up), \
+            attention_abs_terms_reference(*up)
+    else:
+        kh, kw = grid
+        bh_, bw_ = (torch.from_numpy(0.5 * rng.normal(size=(b, h, sq, n))
+                                     .astype(np.float32)) for n in (kh, kw))
+        bias = (bh_[..., :, None] + bw_[..., None, :]).reshape(b, h, sq, sk)
+        (o, lse), terms = grid_bias_reference(*up, bh_, bw_, kw), \
+            grid_bias_abs_terms_reference(*up, bh_, bw_, kw)
+    return (q, k, v, d ** -0.5, bias), (o, lse, terms)
+
+
+def _rounded_forward(q, k, v, scale, bias=None, fault=None):
+    """(o, lse) as the tensor-core forward kernel rounds them: logits and
+    sums in f64; the online softmax over 64-key tiles, and for Sq ≤ 16 with
+    more than one tile over the four warps' tiles (tile t to warp t % 4)
+    with their (m, l, o) combined at the end; p rounded to bf16 per tile
+    under the running max; l sums the unrounded p; o rounded to bf16.
+    ``fault`` makes a broken kernel: "drop_key_tile" leaves keys 0-63 out,
+    "double_scale" takes 2·scale, "no_rescale" never rescales o by alpha,
+    "lse_log2" returns lse in log₂."""
+    q, k, v = (t.double() for t in (q, k, v))
+    if fault == "double_scale":
+        scale = 2 * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if bias is not None:
+        s = s + bias.double()
+    sq, sk = s.shape[-2:]
+    nt = -(-sk // 64)
+    warps = 4 if sq <= 16 and nt > 1 else 1
+    parts = []
+    for w in range(warps):
+        m = torch.full(s.shape[:-1], -torch.inf, dtype=torch.float64)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(*s.shape[:-1], v.shape[-1], dtype=torch.float64)
+        for t in range(w, nt, warps):
+            st, vt = s[..., 64 * t:64 * t + 64], v[..., 64 * t:64 * t + 64, :]
+            if fault == "drop_key_tile" and t == 0:
+                continue
+            m_new = torch.maximum(m, st.amax(-1))
+            base = torch.where(m_new == -torch.inf, 0.0, m_new)
+            alpha = torch.exp(m - base)
+            p = torch.exp(st - base[..., None])
+            l = l * alpha + p.sum(-1)
+            if fault != "no_rescale":
+                acc = acc * alpha[..., None]
+            acc = acc + p.to(torch.bfloat16).double() @ vt
+            m = m_new
+        parts.append((m, l, acc))
+    mx = torch.stack([p[0] for p in parts]).amax(0)
+    f = [torch.exp(p[0] - mx) for p in parts]
+    l = sum(p[1] * fw for p, fw in zip(parts, f))
+    acc = sum(p[2] * fw[..., None] for p, fw in zip(parts, f))
+    lse = mx + torch.log(l)
+    if fault == "lse_log2":
+        lse = lse / np.log(2.0)
+    return (acc / l[..., None]).to(torch.bfloat16), lse.float()
+
+
+@pytest.mark.parametrize("shape,grid", FWD_BOUND_CASES)
+def test_forward_bound_admits_the_kernels_rounding(shape, grid):
+    """A kernel that rounds as the tensor-core forward does passes the
+    card's bound against the f32 plain version; Σ|terms| is at least |o|
+    elementwise."""
+    args, (o_ref, lse_ref, terms) = _fwd_problem(shape, grid, sum(shape))
+    assert bool((terms >= o_ref.abs() * (1 - 1e-5) - 1e-7).all())
+    o, lse = _rounded_forward(*args)
+    chip_smoke.fwd_error(o, o_ref, terms, lse, lse_ref, f"{shape} {grid}")
+
+
+def test_forward_bound_needs_the_terms():
+    """The bound of the f32 CUDA-core kernel, 2⁻⁸·|o_ref| + 2e-3, does not
+    admit p's rounding to bf16 where few keys carry o: over the mask
+    decoder's 11 keys the rounding model exceeds it (1.25-1.31× over three
+    seeds) and passes the bound with the terms."""
+    shape = (8, 8, 1024, 11, 16)
+    args, (o_ref, lse_ref, terms) = _fwd_problem(shape, None, sum(shape))
+    o, lse = _rounded_forward(*args)
+    assert float(((o.float() - o_ref).abs()
+                  / (2.0 ** -8 * o_ref.abs() + 2e-3)).max()) > 1.1
+    chip_smoke.fwd_error(o, o_ref, terms, lse, lse_ref, str(shape))
+
+
+def test_split_keys_combine_as_one_pass():
+    """Splitting the keys across the four warps changes only where p is
+    rounded: o within a bf16 step of the one-pass model, lse to 1e-6."""
+    args, _ = _fwd_problem((1, 2, 11, 300, 16), None, 7)
+    o_split, lse_split = _rounded_forward(*args)
+    q, k, v, scale, _ = args
+    pad = torch.zeros(1, 2, 5, 16, dtype=torch.bfloat16)
+    o_one, lse_one = _rounded_forward(torch.cat([q, pad], 2), k, v, scale)
+    o_one, lse_one = o_one[..., :11, :], lse_one[..., :11]
+    torch.testing.assert_close(lse_split, lse_one, atol=1e-6, rtol=0)
+    torch.testing.assert_close(o_split.float(), o_one.float(), atol=8e-3,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("fault", ["drop_key_tile", "double_scale",
+                                   "no_rescale", "lse_log2"])
+@pytest.mark.parametrize("shape,grid", [((1, 2, 70, 200, 32), None),
+                                        ((1, 2, 96, 96, 80), (4, 24))])
+def test_forward_bound_refuses_a_broken_kernel(shape, grid, fault):
+    """Each fault fails the bound by at least 10× at its worst element, at
+    four key tiles without the bias and two with it (a missing rescale only
+    shows where a later tile raises a row's max)."""
+    args, (o_ref, lse_ref, terms) = _fwd_problem(shape, grid, sum(shape))
+    o, lse = _rounded_forward(*args, fault=fault)
+    with pytest.raises(AssertionError, match="over its bound") as err:
+        chip_smoke.fwd_error(o, o_ref, terms, lse, lse_ref, fault)
+    worst = float(re.search(r"([\d.]+)× at worst", str(err.value)).group(1))
+    assert worst >= 10, str(err.value)
+
+
+def test_grid_bias_forward_terms_without_a_bias_are_the_flash_terms():
+    args, _ = _fwd_problem((1, 2, 40, 96, 80), None, 3)
+    q, k, v = (t.float() for t in args[:3])
+    zeros = [torch.zeros(1, 2, 40, n) for n in (4, 24)]
+    torch.testing.assert_close(
+        grid_bias_abs_terms_reference(q, k, v, *zeros, 24),
+        attention_abs_terms_reference(q, k, v))

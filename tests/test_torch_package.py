@@ -120,3 +120,29 @@ def test_pose_params_zeros_default_to_the_card():
     p = PoseParams.zeros(2, device="cpu")
     assert p.translation.shape == (2, 3) and p.yaw.device.type == "cpu"
     assert float(p.log_scale.abs().sum()) == 0
+
+
+def test_editing_a_header_rebuilds_what_includes_it(tmp_path, monkeypatch):
+    """A library's name hashes its source and the ``csrc`` headers the
+    source includes: editing ``tc_tiles.cuh`` renames both attention
+    libraries, so a stale build is never loaded, and leaves the silhouette's
+    alone, which does not include it."""
+    import shutil
+
+    from regen3d_tpu_torch import kernels
+
+    for src in kernels.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels._lib_path(n) for n in kernels.SOURCES}
+    assert set(before) == {"flash_fwd", "flash_bwd", "silhouette"}
+    header = tmp_path / "tc_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels._lib_path(n) for n in kernels.SOURCES}
+    assert after["flash_fwd"] != before["flash_fwd"]
+    assert after["flash_bwd"] != before["flash_bwd"]
+    assert after["silhouette"] == before["silhouette"]
+    # and the sources themselves still count
+    src = tmp_path / "silhouette.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert kernels._lib_path("silhouette") != before["silhouette"]
