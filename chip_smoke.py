@@ -23,14 +23,23 @@ Phases, each reported on one line:
    checked; the grid-bias pair at SAM-H's global blocks, timed, and at the
    small SAM's 32 × 32 key grid and a 48 × 48 one, checked) with a
    non-zero upstream gradient, beside SDPA's backward and its errors, two
-   launches of each kernel compared bit for bit;
+   launches of each kernel compared bit for bit; the silhouette pair at
+   the phase-6 batch (timed, and split into its rows without faces, its
+   busy rows and its busiest row), at the same tile inputs with σ = 1e-4's
+   constants (timed; almost nothing culled) and at random slivers at K =
+   40 and 1000 (checked), each within alpha atol 1e-5 and 2e-5·Σ|terms|
+   of dc, two launches bit-identical, with its binned, live (z > Z_CUT)
+   and kept (the cull's) pixel-face pairs; no live pair in a culled block;
+   ptxas reports no spills and no stack frame for either kernel;
 3. scene_step at the full VGGT-1B width and depth (random weights from a
    seed), 2 frames and 8 objects, checked finite and, on a small config,
    against the same step on the CPU's plain versions;
 4. fit_poses at phase 6's default configuration (1024², 32-px tiles, 128
    faces per tile, edge rasterizer, 2048 faces and 4096 points per object,
    300 iterations): 5 iterations against the plain edge path, then the full
-   fit on the kernels;
+   fit on the kernels, then one iteration's wall time, device time and
+   launches from fits of 5 and 10 iterations under torch.profiler, with the
+   ten device operations with the most time;
 5. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
    weights on the CPU (f32, plain versions), then detect_and_segment with
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
@@ -129,8 +138,8 @@ SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
-# f32 operations per (pixel, valid face) pair in the silhouette kernels: about
-# 20 for the three edge lines, the min, z and the sums, plus the
+# f32 operations per live (pixel, valid face) pair in the silhouette kernels:
+# about 20 for the three edge lines, the min, z and the sums, plus the
 # transcendentals (exp and log1p forward, exp backward)
 SIL_OPS_PER_PAIR = {"fwd": 22, "bwd": 21}
 
@@ -216,11 +225,13 @@ def gb_bwd_error(got, ref, name, terms=None):
 
 
 def device_top(fn, n):
-    """(total ms, [(ms, name, launches)] of the n largest) of the device
-    time of each kernel (or copy) in one call of ``fn`` under
-    torch.profiler, by name, names cut to 80 characters. The CPU-side
-    operations that launched them are left out: their self device time is
-    their kernels' again."""
+    """(total ms, [(ms, name, launches)] of the n largest, launches, the same
+    list by operator) of the device time in one call of ``fn`` under
+    torch.profiler. The first list is by kernel (or copy) name, names cut to
+    80 characters after "void " and "at::native::"; launches counts every
+    kernel and copy. The by-operator list ranks the CPU-side operations
+    (aten::mul, ...) by their self device time, the time of the kernels
+    each launched itself."""
     import torch
     from torch.autograd import DeviceType
 
@@ -230,16 +241,21 @@ def device_top(fn, n):
         fn()
         torch.cuda.synchronize()
 
-    rows = []
+    rows, ops = [], []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) == DeviceType.CPU:
-            continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us / 1e3, e.key[:80], e.count))
+        if us <= 0:
+            continue
+        if getattr(e, "device_type", None) == DeviceType.CPU:
+            ops.append((us / 1e3, e.key[:80], e.count))
+        else:
+            name = e.key.replace("void ", "").replace("at::native::", "")
+            rows.append((us / 1e3, name[:80], e.count))
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows[:n]
+    ops.sort(reverse=True)
+    return (sum(r[0] for r in rows), rows[:n], sum(r[2] for r in rows),
+            ops[:n])
 
 
 def log(msg: str) -> None:
@@ -272,7 +288,9 @@ def cuda_ms(fn, reps=10, warmup=2):
     return times[len(times) // 2]
 
 
-def phase_device(kernels):
+def phase_device(kernels, results):
+    """The card, the build, and ptxas's report on every kernel instance
+    (results["ptxas"][instance]: registers, stack frame and spill bytes)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -283,7 +301,7 @@ def phase_device(kernels):
         kernels.lib(name)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{sorted(built) or 'nothing (up to date)'}")
-    spills = []
+    ptx = results.setdefault("ptxas", {})
     for name, text in kernels.BUILD_LOG.items():
         fn = ""   # the kernel instance ptxas is reporting on
         for line in text.splitlines():
@@ -293,11 +311,23 @@ def phase_device(kernels):
                 fn = m.group(1) + ptxas_args(m.group(2))
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {fn}: {line.strip()}")
-                if fn.startswith("fwd_kernel") and re.search(
-                        r"[1-9]\d* bytes spill", line):
-                    spills.append(fn)
+                info = ptx.setdefault(fn, {})
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("stack", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                    found = re.search(pat, line)
+                    if found:
+                        info[key] = int(found.group(1))
+    spills = [fn for fn, info in ptx.items()
+              if (fn.startswith("fwd_kernel") or fn.startswith("silhouette"))
+              and info.get("spill_stores", 0) + info.get("spill_loads", 0)]
     if spills:
-        raise AssertionError(f"the forward kernel spills registers: {spills}")
+        raise AssertionError(f"kernels that spill registers: {spills}")
+    stacks = [fn for fn, info in ptx.items()
+              if fn.startswith("silhouette") and info.get("stack", 0)]
+    if stacks:
+        raise AssertionError(f"silhouette kernels with a stack frame: {stacks}")
     return smi
 
 
@@ -314,8 +344,6 @@ def ptxas_args(mangled):
 def phase_kernels(results):
     """Each kernel against its plain version at the main paths' shapes."""
     import torch
-
-    from regen3d_tpu_torch.ops import silhouette_kernel as sk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = ("o: elementwise 2^-8*(|o_ref| + sum|terms|) + 2e-3 (p rounded to "
@@ -357,32 +385,91 @@ def phase_kernels(results):
         timed=f"timed at {GB_SHAPE} grid {GB_GRID}; errors also over "
               f"{GB_BWD_CHECKS}", **r["ms"])
 
-    # silhouette: the phase-6 batch at its initial pose
-    batch, cam, cfg, _gt = phase6_problem()
-    from regen3d_tpu_torch.pipeline.pose_fit import (
-        compute_batch_bins,
-        pose_transform,
-    )
-    init = phase6_init(_gt)
-    bins = compute_batch_bins(init, batch, cam, cfg)
-    with torch.no_grad():
-        vs = cam.view_to_screen(cam.world_to_view(pose_transform(init, batch,
-                                                                 cfg)))
-        co, nvalid, va, uv = sk.edge_tile_inputs(
-            vs, batch.faces, cfg.image_hw, cfg.sigma, batch.faces_mask,
-            faces_per_tile=cfg.faces_per_tile, bins=bins)
-    consts = sk.tile_consts(cfg.image_hw, cfg.sigma)
-    n_busy = int((nvalid > 0).sum())
+    phase_silhouette(results, gen)
+
+
+def sil_pairs(sk, nvalid, co, va, uv, inv_sigma, ndc):
+    """The (pixel, face) pairs of one batch of tile inputs: "binned", every
+    valid face's 1024 pixels; "live", those with z > Z_CUT, the only ones
+    whose term is not exactly 0 in f32; "kept", those in the (face, pixel
+    block) pairs the kernels evaluate (silhouette_cull_plain); the longest
+    chains of work, "block_faces" (the most faces kept in one pixel block)
+    and "row_pairs" (the most pairs kept in one row, at row "busiest").
+    Raises if a live pair lies in a culled block."""
+    import torch
+
+    k = va.shape[1]
+    keep = sk.silhouette_cull_plain(nvalid, co, va, uv, inv_sigma, ndc)
+    block = sk.pixel_blocks(co.device)
+    pu, pv = sk._base_pix(ndc, co.device)
+    rows = torch.nonzero(nvalid > 0).flatten()
+    live = lost = 0
+    for s in range(0, rows.numel(), 64):
+        r = rows[s:s + 64]
+        e = sk._edges(co[r], uv[r % uv.shape[0]], pu, pv)
+        d = torch.minimum(e[:, :k], torch.minimum(e[:, k:2 * k], e[:, 2 * k:]))
+        on = (d * d.abs() * inv_sigma > sk.Z_CUT) & (va[r][:, :, None] != 0)
+        live += int(on.sum())
+        lost += int((on & ~keep[r][:, :, block]).sum())
+    if lost:
+        raise AssertionError(f"silhouette cull: {lost} live pairs in culled "
+                             f"blocks")
+    per_row = keep.sum((1, 2))
+    return dict(binned=int((va != 0).sum()) * sk.P, live=live,
+                kept=int(keep.sum()) * sk.CULL_BLOCK ** 2,
+                block_faces=int(keep.sum(1).max()),
+                row_pairs=int(per_row.max()) * sk.CULL_BLOCK ** 2,
+                busiest=int(per_row.argmax()))
+
+
+def sil_split(sk, nvalid, co, va, uv, g, consts, busiest):
+    """Device ms of each kernel (fwd, bwd) on parts of one batch: its rows
+    without faces alone (nvalid zeroed), its busy rows alone (compacted),
+    its busiest row alone; and of torch's zero_ on tensors of acc's and
+    dc's size, the zero fill's yardstick."""
+    import torch
+
+    def part(r):
+        return (nvalid[r].contiguous(), co[r].contiguous(),
+                va[r].contiguous(), uv[r % uv.shape[0]].contiguous(),
+                g[r].contiguous())
+
+    rows = torch.nonzero(nvalid > 0).flatten()
+    parts = {"empty": (torch.zeros_like(nvalid), co, va, uv, g),
+             "busy": part(rows),
+             "busiest": part(torch.tensor([busiest], device=co.device))}
+    out = {}
+    for name, (nv, c, v, u, gg) in parts.items():
+        out[name] = (
+            cuda_ms(lambda: sk.silhouette_tiles_fwd(nv, c, v, u, *consts)),
+            cuda_ms(lambda: sk.silhouette_tiles_bwd(nv, c, v, u, gg,
+                                                    *consts)))
+    za = torch.empty(nvalid.numel(), sk.P, device=co.device)
+    zd = torch.empty_like(co)
+    out["zero_"] = (cuda_ms(za.zero_), cuda_ms(zd.zero_))
+    return out
+
+
+def sil_case(sk, what, nvalid, co, va, uv, consts, gen, timed):
+    """Both silhouette kernels at one batch of tile inputs against their
+    plain versions, a second launch of each compared bit for bit; the pair
+    counts, the bounds and, if ``timed``, the times."""
+    import torch
+
     acc_k = sk.silhouette_tiles_fwd(nvalid, co, va, uv, *consts)
+    acc_k2 = sk.silhouette_tiles_fwd(nvalid, co, va, uv, *consts)
     acc_p = sk.silhouette_tiles_fwd_plain(nvalid, co, va, uv, *consts)
     torch.cuda.synchronize()
+    if not torch.equal(acc_k, acc_k2):
+        raise AssertionError(f"silhouette_fwd {what}: two launches differ")
     # alpha = 1 − exp(acc): f32 sums over ≤128 faces in another order and
     # the transcendentals' last bits → atol 1e-5
     err_a = float((torch.exp(acc_k) - torch.exp(acc_p)).abs().max())
     if err_a > 1e-5:
-        raise AssertionError(f"silhouette_fwd alpha error {err_a:.3e}")
-    g = torch.randn(acc_k.shape, generator=gen, device="cuda")
+        raise AssertionError(f"silhouette_fwd {what}: alpha error {err_a:.3e}")
+    g = torch.randn(acc_k.shape, generator=gen, device=co.device)
     dc_k = sk.silhouette_tiles_bwd(nvalid, co, va, uv, g, *consts)
+    dc_k2 = sk.silhouette_tiles_bwd(nvalid, co, va, uv, g, *consts)
     dc_p = sk.silhouette_tiles_bwd_plain(nvalid, co, va, uv, g, *consts)
     # Σ|terms| of every dc element: with |g| every term of a sum has one sign
     # (pixel offsets and tile origins are ≥ 0), so the plain sums are exact
@@ -390,51 +477,176 @@ def phase_kernels(results):
     dc_abs = sk.silhouette_tiles_bwd_plain(nvalid, co, va, uv, g.abs(),
                                            *consts).abs()
     torch.cuda.synchronize()
+    if not torch.equal(dc_k, dc_k2):
+        raise AssertionError(f"silhouette_bwd {what}: two launches differ")
     # dc, elementwise: the same argmin routing (edge values are rounded
     # identically) and f32 sums over 1024 pixels in another order, whose
     # error is a few √1024·2^-24 of Σ|terms| → 2e-5·Σ|terms|. A misrouted
     # pixel or a dropped tile-origin fold moves its element by far more.
     diff = (dc_k - dc_p).abs()
-    err_dc = float(diff.max())
-    scale = float(dc_p.abs().max())
     ratio = float((diff / dc_abs.clamp_min(1e-30)).max())
     if not bool((diff <= 2e-5 * dc_abs).all()):
-        raise AssertionError(f"silhouette_bwd dc error {ratio:.3e} of its "
-                             f"element's sum of |terms| (tol 2e-5)")
-    t = {}
-    t["fk"] = cuda_ms(lambda: sk.silhouette_tiles_fwd(nvalid, co, va, uv, *consts))
-    t["fp"] = cuda_ms(lambda: sk.silhouette_tiles_fwd_plain(nvalid, co, va, uv,
-                                                           *consts), reps=5)
-    t["bk"] = cuda_ms(lambda: sk.silhouette_tiles_bwd(nvalid, co, va, uv, g,
-                                                      *consts))
-    t["bp"] = cuda_ms(lambda: sk.silhouette_tiles_bwd_plain(nvalid, co, va, uv,
-                                                           g, *consts), reps=5)
-    # bound: the (pixel, valid face) pairs of this batch, and every input
-    # read once and every output written once
-    pairs = float(va.sum()) * acc_k.shape[-1]
-    in_bytes = 4 * (nvalid.numel() + co.numel() + va.numel() + uv.numel())
-    b_f = bound(SIL_OPS_PER_PAIR["fwd"] * pairs, in_bytes + 4 * acc_k.numel(),
-                "f32")
-    b_b = bound(SIL_OPS_PER_PAIR["bwd"] * pairs,
-                in_bytes + 4 * (g.numel() + dc_k.numel()), "f32")
-    log(f"silhouette ({batch.faces.shape[0]} objects, {cfg.image_hw[0]}², "
-        f"K={va.shape[1]}, {n_busy}/{nvalid.numel()} tiles busy, "
-        f"{pairs:.3e} pixel-face pairs): alpha err "
-        f"{err_a:.3e}, dc err {err_dc:.3e} at max |dc| {scale:.3e}, worst "
-        f"{ratio:.3e} of its element's sum of |terms|; fwd kernel "
-        f"{t['fk']:.3f} ms vs plain {t['fp']:.3f} ms (bound {b_f[0]:.4f} ms, "
-        f"{b_f[1]}), bwd kernel {t['bk']:.3f} ms vs plain {t['bp']:.3f} ms "
-        f"(bound {b_b[0]:.4f} ms, {b_b[1]}); no single PyTorch call computes "
-        f"either")
-    results["silhouette_fwd"] = dict(max_abs_err=err_a, ms=t["fk"],
-                                     plain_ms=t["fp"], bound_ms=b_f[0],
-                                     bound_by=b_f[1], library_ms=None,
-                                     tolerance="alpha atol 1e-5")
-    results["silhouette_bwd"] = dict(max_abs_err=err_dc, max_rel_err=ratio,
-                                     ms=t["bk"], plain_ms=t["bp"],
-                                     bound_ms=b_b[0], bound_by=b_b[1],
-                                     library_ms=None,
-                                     tolerance="elementwise 2e-5 * sum|terms|")
+        raise AssertionError(f"silhouette_bwd {what}: dc error {ratio:.3e} of "
+                             f"its element's sum of |terms| (tol 2e-5)")
+    pairs = sil_pairs(sk, nvalid, co, va, uv, *consts)
+    binned, live, kept = pairs["binned"], pairs["live"], pairs["kept"]
+    busy = nvalid > 0
+    n_busy = int(busy.sum())
+    k = va.shape[1]
+    # bounds: the operations of the live pairs; the bytes of every row's
+    # face count, the busy rows' coefficients and valid flags (and g), and
+    # every output. The dense count before: every binned pair, every input.
+    ops = {n: SIL_OPS_PER_PAIR[n] * live for n in ("fwd", "bwd")}
+    row_in = 4 * n_busy * (9 * k + k)
+    nbytes = {"fwd": 4 * nvalid.numel() + row_in + 4 * acc_k.numel(),
+              "bwd": 4 * nvalid.numel() + row_in + 4 * n_busy * sk.P
+              + 4 * dc_k.numel()}
+    all_in = 4 * (nvalid.numel() + co.numel() + va.numel() + uv.numel())
+    dense = {"fwd": bound(SIL_OPS_PER_PAIR["fwd"] * binned,
+                          all_in + 4 * acc_k.numel(), "f32"),
+             "bwd": bound(SIL_OPS_PER_PAIR["bwd"] * binned,
+                          all_in + 4 * (g.numel() + dc_k.numel()), "f32")}
+    out = dict(err_a=err_a, err_dc=float(diff.max()), ratio=ratio,
+               scale=float(dc_p.abs().max()), binned=binned, live=live,
+               kept=kept, pairs=pairs, n_busy=n_busy,
+               n_rows=nvalid.numel(), k=k,
+               bound={n: bound(ops[n], nbytes[n], "f32") for n in ops},
+               dense=dense)
+    if timed:
+        out["ms"] = dict(
+            fk=cuda_ms(lambda: sk.silhouette_tiles_fwd(nvalid, co, va, uv,
+                                                       *consts)),
+            fp=cuda_ms(lambda: sk.silhouette_tiles_fwd_plain(
+                nvalid, co, va, uv, *consts), reps=5),
+            bk=cuda_ms(lambda: sk.silhouette_tiles_bwd(nvalid, co, va, uv, g,
+                                                       *consts)),
+            bp=cuda_ms(lambda: sk.silhouette_tiles_bwd_plain(
+                nvalid, co, va, uv, g, *consts), reps=5))
+        out["split"] = sil_split(sk, nvalid, co, va, uv, g, consts,
+                                 pairs["busiest"])
+    line = (f"silhouette {what} (K={k}, {n_busy}/{nvalid.numel()} rows "
+            f"busy): alpha err {err_a:.3e}, dc err {out['err_dc']:.3e} at "
+            f"max |dc| {out['scale']:.3e}, worst {ratio:.3e} of its "
+            f"element's sum of |terms|; both bit-identical twice; pairs "
+            f"binned {binned:.4e}, live (z > {sk.Z_CUT:g}) {live:.4e} "
+            f"({live / max(binned, 1):.3%}), kept by the cull {kept:.4e} "
+            f"({kept / max(binned, 1):.3%}), no live pair culled; at most "
+            f"{pairs['block_faces']} faces kept in a pixel block and "
+            f"{pairs['row_pairs']} pairs in a row; bound fwd "
+            f"{out['bound']['fwd'][0]:.4f} ms ({out['bound']['fwd'][1]}), "
+            f"bwd {out['bound']['bwd'][0]:.4f} ms "
+            f"({out['bound']['bwd'][1]}); dense count fwd "
+            f"{dense['fwd'][0]:.4f} ms ({dense['fwd'][1]}), bwd "
+            f"{dense['bwd'][0]:.4f} ms ({dense['bwd'][1]})")
+    if timed:
+        t = out["ms"]
+        sp = out["split"]
+        line += (f"; fwd kernel {t['fk']:.4f} ms vs plain {t['fp']:.3f} ms, "
+                 f"bwd kernel {t['bk']:.4f} ms vs plain {t['bp']:.3f} ms; "
+                 f"split (fwd, bwd ms): the rows without faces alone "
+                 f"{sp['empty'][0]:.4f}, {sp['empty'][1]:.4f} (torch zero_ "
+                 f"of acc, dc {sp['zero_'][0]:.4f}, {sp['zero_'][1]:.4f}); "
+                 f"the busy rows alone {sp['busy'][0]:.4f}, "
+                 f"{sp['busy'][1]:.4f}; the busiest row alone "
+                 f"{sp['busiest'][0]:.4f}, {sp['busiest'][1]:.4f}")
+    log(line)
+    return out
+
+
+def sliver_problem(gen, b=4, n=128, size=512, k=40, sigma=5e-7, dev="cuda"):
+    """Tile inputs for ``b`` objects of ``n`` random slivers at size² (long,
+    thin, with an acute tip whose corner sector reaches far), binned with a
+    16-px margin at K = ``k``."""
+    import torch
+
+    from regen3d_tpu_torch.ops import silhouette_kernel as sk
+    from regen3d_tpu_torch.ops.rasterize import compute_silhouette_bins
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    c = 10 + (size - 20) * rand(b, n, 2)
+    ang = 2 * math.pi * rand(b, n)
+    length, half = 20 + 60 * rand(b, n, 1), 0.2 + 0.8 * rand(b, n, 1)
+    dv = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    nv = torch.stack([-dv[..., 1], dv[..., 0]], -1)
+    tri = torch.stack([c, c + length * dv + half * nv,
+                       c + length * dv - half * nv], 2)      # (b, n, 3, 2)
+    verts = torch.cat([tri, torch.full_like(tri[..., :1], 2.5)], -1)
+    verts = verts.reshape(b, 3 * n, 3)
+    faces = torch.arange(3 * n, dtype=torch.int32, device=dev)
+    faces = faces.reshape(n, 3)[None].expand(b, n, 3).contiguous()
+    bins = compute_silhouette_bins(verts, faces, (size, size), sigma,
+                                   tile=32, faces_per_tile=k, margin_px=16.0)
+    inputs = sk.edge_tile_inputs(verts, faces, (size, size), sigma,
+                                 faces_per_tile=k, bins=bins)
+    return inputs, sk.tile_consts((size, size), sigma)
+
+
+def phase_silhouette(results, gen):
+    """The silhouette kernels at four problems: the phase-6 batch at its
+    initial pose (timed), the same tile inputs with σ = 1e-4's constants
+    (almost nothing culled; timed) and random slivers at K = 40 and 1000
+    (checked); ptxas's registers, stack frame and spills of both kernels."""
+    import torch
+
+    from regen3d_tpu_torch.ops import silhouette_kernel as sk
+    from regen3d_tpu_torch.pipeline.pose_fit import (
+        compute_batch_bins,
+        pose_transform,
+    )
+
+    batch, cam, cfg, gt = phase6_problem()
+    init = phase6_init(gt)
+    bins = compute_batch_bins(init, batch, cam, cfg)
+    with torch.no_grad():
+        vs = cam.view_to_screen(cam.world_to_view(pose_transform(init, batch,
+                                                                 cfg)))
+        co, nvalid, va, uv = sk.edge_tile_inputs(
+            vs, batch.faces, cfg.image_hw, cfg.sigma, batch.faces_mask,
+            faces_per_tile=cfg.faces_per_tile, bins=bins)
+    main = sil_case(sk, f"phase-6 batch ({batch.faces.shape[0]} objects, "
+                    f"{cfg.image_hw[0]}², sigma {cfg.sigma:g})", nvalid, co,
+                    va, uv, sk.tile_consts(cfg.image_hw, cfg.sigma), gen,
+                    timed=True)
+    wide = sil_case(sk, "phase-6 tile inputs at sigma 1e-4's constants",
+                    nvalid, co, va, uv, sk.tile_consts(cfg.image_hw, 1e-4),
+                    gen, timed=True)
+    (co_s, nvalid_s, va_s, uv_s), consts_s = sliver_problem(gen)
+    sliver = sil_case(sk, "random slivers (4 objects, 512², sigma 5e-7)",
+                      nvalid_s, co_s, va_s, uv_s, consts_s, gen, timed=False)
+    # K = 1000: over 48 KB of shared memory, several forward face chunks
+    # and backward item chunks a row
+    (co_l, nvalid_l, va_l, uv_l), consts_l = sliver_problem(
+        gen, b=1, n=1024, size=128, k=1000, sigma=1e-5)
+    wide_k = sil_case(sk, "random slivers (1 object, 128², sigma 1e-5)",
+                      nvalid_l, co_l, va_l, uv_l, consts_l, gen, timed=False)
+    ptx = results.get("ptxas", {})
+    regs = "; ".join(
+        f"{fn}: {info.get('registers')} registers, {info.get('stack')} bytes "
+        f"stack frame, {info.get('spill_stores')}/{info.get('spill_loads')} "
+        f"bytes spill stores/loads"
+        for fn, info in sorted(ptx.items()) if fn.startswith("silhouette")) \
+        or "not rebuilt in this run"
+    log(f"silhouette ptxas: {regs}")
+    cases = (main, wide, sliver, wide_k)
+    t = main["ms"]
+    tol_dc = "elementwise 2e-5 * sum|terms|; two launches bit-identical"
+    checked = ("errors: worst over the phase-6 batch, the same inputs at "
+               "sigma 1e-4's constants and random slivers at K = 40 and "
+               "1000; times and bound at the phase-6 batch")
+    results["silhouette_fwd"] = dict(
+        max_abs_err=max(c["err_a"] for c in cases), ms=t["fk"],
+        plain_ms=t["fp"], bound_ms=main["bound"]["fwd"][0],
+        bound_by=main["bound"]["fwd"][1], library_ms=None,
+        tolerance="alpha atol 1e-5; two launches bit-identical",
+        timed=checked)
+    results["silhouette_bwd"] = dict(
+        max_abs_err=max(c["err_dc"] for c in cases),
+        max_rel_err=max(c["ratio"] for c in cases), ms=t["bk"],
+        plain_ms=t["bp"], bound_ms=main["bound"]["bwd"][0],
+        bound_by=main["bound"]["bwd"][1], library_ms=None, tolerance=tol_dc,
+        timed=checked)
 
 
 def fwd_error(o, o_ref, terms, lse, lse_ref, name):
@@ -957,6 +1169,54 @@ def phase_fit(results, iters_check=5):
     results["fit_launches"] = counts
     results["fit_sec"] = dt
     results["fit_iters"] = int(res.num_iters)
+    fit_split(init, batch, cam, cfg)
+
+
+def fit_split(init, batch, cam, cfg, short=5):
+    """Where a phase-6 iteration's time goes: fits of ``short`` and
+    2·``short`` iterations, each once on the host's clock and once under
+    torch.profiler; the difference over ``short`` iterations is one
+    iteration's wall time, device time and launches, without the fit's
+    set-up (bins, final loss). The ten device operations with the most time
+    are those of the short fit's window."""
+    import dataclasses
+
+    import torch
+
+    from regen3d_tpu_torch.pipeline.pose_fit import fit_poses
+
+    def fit(n):
+        c = dataclasses.replace(cfg, max_iterations=n,
+                                early_stop_min_iters=n)
+        return lambda: fit_poses(init, batch, cam, c)
+
+    wall, dev, launches = {}, {}, {}
+    for n in (short, 2 * short):
+        fit(n)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(n)()
+        torch.cuda.synchronize()
+        wall[n] = 1e3 * (time.perf_counter() - t0)
+        dev[n], top, launches[n], top_ops = device_top(fit(n), 10)
+        if n == short:
+            top_short, ops_short = top, top_ops
+    per = {k: (v[2 * short] - v[short]) / short
+           for k, v in (("wall", wall), ("dev", dev), ("launches", launches))}
+    if per["dev"] <= 0:
+        raise AssertionError("fit split: no device time recorded")
+    def listed(rows):
+        return "; ".join(f"{name} {ms:.2f} ms ({ms / dev[short]:.1%}, {c}x)"
+                         for ms, name, c in rows)
+
+    log(f"phase-6 iteration split ({short} vs {2 * short} iterations): "
+        f"wall {per['wall']:.2f} ms, device {per['dev']:.2f} ms "
+        f"({per['dev'] / per['wall']:.1%} of wall), {per['launches']:.1f} "
+        f"launches an iteration; the {short}-iteration fit: wall "
+        f"{wall[short]:.1f} ms, device {dev[short]:.2f} ms, "
+        f"{launches[short]} launches; its ten device operations with the "
+        f"most time: {listed(top_short)}; by the operator that launched "
+        f"them: {listed(ops_short)}")
 
 
 def _scene_inputs(cfg, dev, k=8, seed=0):
@@ -1582,7 +1842,7 @@ def phase_sam_grad(results):
         emb = model.encode(img)
         torch.autograd.grad((emb.float() * cot).sum(), enc_params)
 
-    total, top = device_top(vjp, 10)
+    total, top = device_top(vjp, 10)[:2]
     split = "; ".join(f"{name} {ms:.2f} ms ({ms / total:.1%}, {c}x)"
                       for ms, name, c in top) if total > 0 else \
         "no device time recorded"
@@ -1603,8 +1863,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 3
 
-    phase_device(kernels)
     results = {}
+    phase_device(kernels, results)
     phase_kernels(results)
     phase_bwd_kernels(results)
     phase_scene(results)

@@ -12,6 +12,10 @@ autograd of :func:`face_edge_coeffs` and the bin gather.
 ``csrc/silhouette.cu`` on CUDA tensors and run the plain PyTorch versions
 beside them (``*_plain``) on CPU tensors. One launch covers every object.
 Everything is f32; the backward's sums must not go through TF32.
+
+The kernels skip every (face, 8×8 pixel block) pair whose terms are all
+exactly 0 in f32 (``z ≤ Z_CUT`` at every pixel of the block);
+:func:`silhouette_cull_plain` repeats that decision for the tests.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ from regen3d_tpu_torch.ops.rasterize import (
 TILE = 32
 P = TILE * TILE
 _PLAIN_BLOCKS = 64      # tiles per step of the plain version (bounds memory)
+# f32 exp, softplus and sigmoid are exactly 0 at and below this z
+Z_CUT = -105.0
+CULL_BLOCK = 8          # side of the kernels' pixel blocks
 
 
 def _base_pix(ndc: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,6 +107,53 @@ def silhouette_tiles_bwd_plain(nvalid, coeffs, valid, tile_uv, g, inv_sigma,
     return dc
 
 
+def pixel_blocks(device=None) -> torch.Tensor:
+    """(P,) the 8×8 pixel block (by·4 + bx) of each tile pixel p = v·TILE + u,
+    as :func:`silhouette_cull_plain` numbers them."""
+    p = torch.arange(P, device=device)
+    n = TILE // CULL_BLOCK
+    return (p // TILE // CULL_BLOCK) * n + (p % TILE) // CULL_BLOCK
+
+
+def silhouette_cull_radius(inv_sigma: float) -> np.float32:
+    """The kernels' cull radius in f32: sqrt(−Z_CUT / inv_sigma)·(1 + 2⁻¹⁰),
+    each operation rounded as ``csrc/silhouette.cu::cull_radius`` rounds it.
+    An edge value below −r gives z < Z_CUT."""
+    q = np.float32(-Z_CUT) / np.float32(inv_sigma)
+    return np.float32(np.sqrt(q)) * np.float32(1.0 + 2.0 ** -10)
+
+
+def silhouette_cull_plain(nvalid, coeffs, valid, tile_uv, inv_sigma, ndc,
+                          radius=None):
+    """Which (row, face, 8×8 pixel block) pairs the kernels evaluate:
+    (N, K, 16) bool, block index by·4 + bx. A pair is dropped when its row
+    or face is empty, or when for some edge the value at the block's corner
+    where the edge is largest, plus a margin for rounding, is below
+    −``radius`` (default :func:`silhouette_cull_radius`). Every operation is
+    rounded as the kernels round it, so the decision is theirs bit for bit.
+    For the tests and the chip check; the port's path does not call it."""
+    n, k = valid.shape
+    dev = coeffs.device
+    r = silhouette_cull_radius(inv_sigma) if radius is None else radius
+    ndc_t = torch.tensor(ndc, dtype=torch.float32, device=dev)
+    uv = tile_uv[torch.arange(n, device=dev) % tile_uv.shape[0]]
+    a, b, c = coeffs[..., 0], coeffs[..., 1], coeffs[..., 2]     # (N, 3K)
+    c2 = a * uv[:, 0:1] + b * uv[:, 1:2] + c
+    xmax = (TILE - 1 + 0.5) * ndc_t
+    margin = (a.abs() * xmax + b.abs() * xmax + c2.abs()) * 2.0 ** -20
+    first = torch.arange(0, TILE, CULL_BLOCK, device=dev).float()
+    lo = (first + 0.5) * ndc_t                                   # (4,)
+    hi = (first + (CULL_BLOCK - 1) + 0.5) * ndc_t
+    x = torch.where(a[..., None] >= 0, hi, lo)                   # (N, 3K, bx)
+    y = torch.where(b[..., None] >= 0, hi, lo)                   # (N, 3K, by)
+    top = (a[..., None, None] * x[..., None, :]
+           + b[..., None, None] * y[..., :, None]) + c2[..., None, None]
+    out = (top + margin[..., None, None]) < -float(r)            # (N, 3K, by, bx)
+    out = out[:, :k] | out[:, k:2 * k] | out[:, 2 * k:]
+    keep = ~out.reshape(n, k, -1)
+    return keep & (valid != 0)[..., None] & (nvalid > 0)[:, None, None]
+
+
 def _check_cuda(what, **tensors):
     for name, t in tensors.items():
         if t.device.type != "cuda":
@@ -151,6 +205,8 @@ def silhouette_tiles_bwd(nvalid, coeffs, valid, tile_uv, g, inv_sigma, ndc):
                                           inv_sigma, ndc)
     _check_cuda("silhouette_bwd", nvalid=nvalid, coeffs=coeffs, valid=valid,
                 tile_uv=tile_uv, g=g)
+    if g.data_ptr() % 16:       # the kernel reads g in 16-byte vectors
+        g = g.clone()
     n, k = valid.shape
     dc = torch.empty_like(coeffs)
     err = kernels.lib("silhouette").silhouette_bwd(

@@ -1,16 +1,19 @@
 """Port silhouettes vs the JAX package: bins, edge coefficients, the edge
 tile function (plain version of the CUDA kernels) against the Pallas kernel
-in interpret mode, the plain edge path and the streaming SoftRas.
+in interpret mode, the plain edge path and the streaming SoftRas; and the
+kernels' exact cull (silhouette_cull_plain) against the plain versions.
 
 Tolerances: f32 on both sides. Alpha atol 1e-5 (sum order over faces);
 vertex gradients rtol 1e-3 / atol 2e-6, the bound the JAX package holds its
-own Pallas gradients to (tests/test_pallas_rasterize.py)."""
+own Pallas gradients to (tests/test_pallas_rasterize.py). The cull is held
+to bit equality: a culled pair must add exactly 0."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from regen3d_tpu.camera import Camera as JCamera
 from regen3d_tpu.ops import pallas_rasterize as jpr
@@ -179,3 +182,180 @@ def test_streaming_soft_silhouette_forward_and_gradient():
                                    atol=1e-5)
         np.testing.assert_allclose(vt.grad[b].numpy(), np.asarray(g_j),
                                    rtol=1e-3, atol=1e-4)
+
+
+# ---- the kernels' exact cull -------------------------------------------
+
+
+def test_cut_gives_exact_zeros():
+    """At and below Z_CUT, f32 exp, softplus and sigmoid are exactly 0, in
+    torch's functions and in the kernels' forms; an edge value of −r gives
+    z ≤ Z_CUT at the σ the fits use."""
+    z = torch.tensor([tk.Z_CUT, tk.Z_CUT - 0.5, -110.0, -1e3, -1e30,
+                      -float("inf")], dtype=torch.float32)
+    for out in (torch.exp(z), F.softplus(z), torch.sigmoid(z),
+                torch.clamp(z, min=0) + torch.log1p(torch.exp(-z.abs())),
+                1.0 / (1.0 + torch.exp(-z))):
+        assert torch.all(out == 0), out
+    # just above the cut the terms are not all 0: the cut is not loose
+    assert F.softplus(torch.tensor(-100.0)) > 0
+    for sigma in (5e-7, 1e-5, 1e-4, 1e-2):
+        inv_sigma, _ = tk.tile_consts((1024, 1024), sigma)
+        r = tk.silhouette_cull_radius(inv_sigma)
+        d = -r * torch.tensor([1.0, 1.5, 4.0, 1e3], dtype=torch.float32)
+        zr = d * d.abs() * np.float32(inv_sigma)
+        assert torch.all(zr <= tk.Z_CUT), (sigma, zr)
+        # r is within 0.2% of the exact radius: the cull is tight
+        assert r < 1.002 * np.sqrt(-tk.Z_CUT / inv_sigma)
+
+
+def _fwd_plain_keeping(nvalid, coeffs, valid, tile_uv, inv_sigma, ndc, keep):
+    """silhouette_tiles_fwd_plain with the pairs that ``keep`` drops set to
+    0 before the sum over faces."""
+    n, k = valid.shape
+    pu, pv = tk._base_pix(ndc, coeffs.device)
+    kp = keep[:, :, tk.pixel_blocks()]
+    acc = torch.zeros(n, tk.P)
+    rows = torch.nonzero(nvalid > 0).flatten()
+    for s in range(0, rows.numel(), tk._PLAIN_BLOCKS):
+        r = rows[s:s + tk._PLAIN_BLOCKS]
+        e = tk._edges(coeffs[r], tile_uv[r % tile_uv.shape[0]], pu, pv)
+        dmin = torch.minimum(e[:, :k], torch.minimum(e[:, k:2 * k],
+                                                     e[:, 2 * k:]))
+        z = dmin * dmin.abs() * inv_sigma
+        contrib = valid[r][:, :, None] * F.softplus(z)
+        acc[r] = -torch.where(kp[r], contrib, torch.zeros_like(contrib)).sum(1)
+    return acc
+
+
+def _bwd_plain_keeping(nvalid, coeffs, valid, tile_uv, g, inv_sigma, ndc,
+                       keep):
+    """silhouette_tiles_bwd_plain with the pairs that ``keep`` drops set to
+    0 before the routing and the sums over pixels."""
+    n, k = valid.shape
+    pu, pv = tk._base_pix(ndc, coeffs.device)
+    kp = keep[:, :, tk.pixel_blocks()]
+    dc = torch.zeros_like(coeffs)
+    rows = torch.nonzero(nvalid > 0).flatten()
+    for s in range(0, rows.numel(), tk._PLAIN_BLOCKS):
+        r = rows[s:s + tk._PLAIN_BLOCKS]
+        uv = tile_uv[r % tile_uv.shape[0]]
+        e = tk._edges(coeffs[r], uv, pu, pv)
+        e0, e1, e2 = e[:, :k], e[:, k:2 * k], e[:, 2 * k:]
+        dmin = torch.minimum(e0, torch.minimum(e1, e2))
+        z = dmin * dmin.abs() * inv_sigma
+        sv = (g[r][:, None, :] * (-torch.sigmoid(z))
+              * (2.0 * dmin.abs() * inv_sigma) * valid[r][:, :, None])
+        sv = torch.where(kp[r], sv, torch.zeros_like(sv))
+        m0 = (e0 == dmin).float()
+        m1 = torch.where(e1 == dmin, 1.0 - m0, torch.zeros_like(m0))
+        m2 = torch.clamp(1.0 - m0 - m1, min=0.0)
+        S = torch.cat([sv * m0, sv * m1, sv * m2], 1)
+        rowsum = S.sum(-1)
+        du = (S * pu).sum(-1) + uv[:, None, 0] * rowsum
+        dv = (S * pv).sum(-1) + uv[:, None, 1] * rowsum
+        dc[r] = torch.stack([du, dv, rowsum], -1)
+    return dc
+
+
+def _cull_batch(sigma, k=48):
+    """Tile inputs at 128² for two objects of slivers (long, thin, with an
+    acute tip whose corner sector reaches far: beyond the tip both long
+    edges are within a pixel over tens of pixels) and small random faces,
+    binned with a 32-px margin, plus one object whose faces have two equal
+    edges (a tie at every pixel, routed to the first) and a third edge far
+    inside."""
+    rng = np.random.default_rng(7)
+    b = 2
+    tris = []
+    for _ in range(b):
+        for i in range(k):
+            c = rng.uniform(10, 118, 2)
+            if i % 2 == 0:
+                ang = rng.uniform(0, 2 * np.pi)
+                length, half = rng.uniform(20, 60), rng.uniform(0.2, 1.0)
+                dv = np.array([np.cos(ang), np.sin(ang)])
+                nv = np.array([-dv[1], dv[0]])
+                tris.append([c, c + length * dv + half * nv,
+                             c + length * dv - half * nv])
+            else:
+                tris.append(list(c + rng.normal(size=(3, 2)) * 6))
+    tri = np.asarray(tris, np.float32).reshape(b, k * 3, 2)
+    vs = torch.from_numpy(np.concatenate(
+        [tri, np.full((b, k * 3, 1), 2.5, np.float32)], -1))
+    faces = torch.arange(k * 3, dtype=torch.int32).reshape(k, 3)
+    faces = faces[None].expand(b, k, 3).contiguous()
+    bins = tr.compute_silhouette_bins(vs, faces, (H, W), sigma, tile=32,
+                                      faces_per_tile=k, margin_px=32.0)
+    co, nvalid, va, uv = tk.edge_tile_inputs(vs, faces, (H, W), sigma,
+                                             faces_per_tile=k, bins=bins)
+    # the tie object: edges 0 and 1 one line through or near the tile
+    t = uv.shape[0]
+    ang = rng.uniform(0, 2 * np.pi, (t, k))
+    ab = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    centre = uv.numpy()[:, None, :] + rng.uniform(-0.1, 0.6, (t, k, 2))
+    c = -(ab * centre).sum(-1, dtype=np.float32)
+    line = np.concatenate([ab, c[..., None]], -1).astype(np.float32)
+    far = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), line.shape)
+    tie = torch.from_numpy(np.concatenate([line, line, far], 1).copy())
+    co = torch.cat([co, tie])
+    va = torch.cat([va, torch.ones(t, k)])
+    nvalid = torch.cat([nvalid, torch.full((t,), k, dtype=torch.int32)])
+    g = torch.from_numpy(rng.normal(size=(co.shape[0], tk.P))
+                         .astype(np.float32))
+    return co, nvalid, va, uv, g
+
+
+@pytest.mark.parametrize("sigma", [5e-7, 1e-4])
+def test_cull_leaves_plain_versions_bit_identical(sigma):
+    """Zeroing the pairs silhouette_cull_plain drops leaves the plain
+    forward's acc and the plain backward's dc bit for bit unchanged, while
+    it drops most pairs."""
+    co, nvalid, va, uv, g = _cull_batch(sigma)
+    consts = tk.tile_consts((H, W), sigma)
+    keep = tk.silhouette_cull_plain(nvalid, co, va, uv, *consts)
+    assert keep.shape == (co.shape[0], va.shape[1], 16)
+    share = float(keep.sum()) / float((va > 0).sum() * 16)
+    assert 0.01 < share < 0.5, share
+    acc = tk.silhouette_tiles_fwd_plain(nvalid, co, va, uv, *consts)
+    assert torch.equal(_fwd_plain_keeping(nvalid, co, va, uv, *consts, keep),
+                       acc)
+    dc = tk.silhouette_tiles_bwd_plain(nvalid, co, va, uv, g, *consts)
+    assert torch.equal(_bwd_plain_keeping(nvalid, co, va, uv, g, *consts,
+                                          keep), dc)
+    # the tie object's gradient reaches edge 0 and never edge 1
+    k = va.shape[1]
+    tie = dc[-uv.shape[0]:]
+    assert bool((tie[:, :k] != 0).any()) and bool((tie[:, k:] == 0).all())
+    assert acc.min() < -1.0 and bool((acc[:-uv.shape[0]] < 0).any())
+
+
+@pytest.mark.parametrize("sigma", [5e-7, 1e-4])
+def test_cull_with_half_the_radius_changes_acc(sigma):
+    """The negative control: the same check with the radius halved drops
+    pairs whose terms are not 0, so acc changes."""
+    co, nvalid, va, uv, _ = _cull_batch(sigma)
+    consts = tk.tile_consts((H, W), sigma)
+    r = tk.silhouette_cull_radius(consts[0])
+    keep = tk.silhouette_cull_plain(nvalid, co, va, uv, *consts,
+                                    radius=r / np.float32(2))
+    acc = tk.silhouette_tiles_fwd_plain(nvalid, co, va, uv, *consts)
+    assert not torch.equal(
+        _fwd_plain_keeping(nvalid, co, va, uv, *consts, keep), acc)
+
+
+@pytest.mark.parametrize("sigma", [5e-7, 1e-4])
+def test_cull_keeps_every_live_pair(sigma):
+    """chip_smoke's pair count on the CPU: every pair with z > Z_CUT lies in
+    a kept block (sil_pairs raises otherwise), and the kept pairs are fewer
+    than the binned ones."""
+    import chip_smoke
+
+    co, nvalid, va, uv, _ = _cull_batch(sigma)
+    pairs = chip_smoke.sil_pairs(tk, nvalid, co, va, uv,
+                                 *tk.tile_consts((H, W), sigma))
+    assert 0 < pairs["live"] <= pairs["kept"] < pairs["binned"]
+    assert pairs["binned"] == int((va != 0).sum()) * tk.P
+    assert 0 < pairs["block_faces"] <= va.shape[1]
+    assert 0 < pairs["row_pairs"] <= pairs["kept"]
+    assert nvalid[pairs["busiest"]] > 0
