@@ -35,18 +35,30 @@ Phases, each reported on one line:
    seed), 2 frames and 8 objects, checked finite and, on a small config,
    against the same step on the CPU's plain versions;
 4. fit_poses at phase 6's default configuration (1024², 32-px tiles, 128
-   faces per tile, edge rasterizer, 2048 faces and 4096 points per object,
-   300 iterations): 5 iterations against the plain edge path, then the full
-   fit on the kernels, then one iteration's wall time, device time and
-   launches from fits of 5 and 10 iterations under torch.profiler, with the
-   ten device operations with the most time;
-5. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
+   faces per tile, edge rasterizer, 2048 faces and 4096 points per object):
+   5 iterations against the plain edge path, then 100 of its 300
+   iterations on the kernels (the bus phase below runs all 300), then one
+   iteration's wall time, device time and launches from fits of 5 and 10
+   iterations under torch.profiler, with the ten device operations with the
+   most time;
+5. phases 5 and 6 through the port's orchestrator (run_phases(cfg, [5, 6])
+   with the defaults but write_fit_gifs off) on a synthetic room's output
+   bus built with the port's writers: 960×1280 findings of 8 objects (~20k
+   faces each, 5 on the floor) and the floor, one 518² VGGT frame, the
+   empty room; the fit at 1024 × 1344 on the silhouette kernels, which are
+   first held to their plain versions at that batch (with a 5-iteration
+   fit on the kernels against the plain edge path and a fit-GIF frame on
+   the card against the CPU); every artifact written, every loss finite
+   and below its initial value, each object's pose error against the truth
+   printed beside a fit without the silhouette term; then phases 5 and 6
+   on a small bus on the card against the CPU;
+6. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
    weights on the CPU (f32, plain versions), then detect_and_segment with
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
    seed) on a 960×1280 synthetic room with 8 boxes from a fixed detector and
    both decoder passes: one encode per call, every mask finite and
    non-empty;
-6. DiT training: a small DiT's flow-matching step on the card (bf16
+7. DiT training: a small DiT's flow-matching step on the card (bf16
    compute, f32 parameters, kernels) against the CPU (f32, plain versions),
    loss and three gradients, with the AdaLN-Zero leaves drawn non-zero;
    then DiTConfig.base() (random weights from a seed) trained for 30 steps
@@ -55,7 +67,7 @@ Phases, each reported on one line:
    launches per step of each flash kernel, and the loss on a fixed batch
    falls; the host's and the device's time for each call of a step (loss,
    backward, AdamW); then sample() at base (4 steps, guidance 5, B = 6);
-7. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
+8. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
    times), and one more SAM-H VJP under torch.profiler, split into its ten
@@ -131,8 +143,9 @@ KERNELS = {
                            replaces="regen3d_tpu/ops/pallas_rasterize.py:85"),
 }
 # the launch counts of each main-path run, summed into the kernels line
-MAIN_PATHS = ("scene_launches", "fit_launches", "sam_launches",
-              "dit_launches", "dit_sample_launches", "sam_grad_launches")
+MAIN_PATHS = ("scene_launches", "fit_launches", "bus_launches",
+              "sam_launches", "dit_launches", "dit_sample_launches",
+              "sam_grad_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -1105,7 +1118,7 @@ def phase6_init(gt):
                        log_scale=gt.log_scale + 0.05)
 
 
-def phase_fit(results, iters_check=5):
+def phase_fit(results, iters_check=5, iters=100):
     import dataclasses
 
     import torch
@@ -1145,10 +1158,12 @@ def phase_fit(results, iters_check=5):
     if not (p_err <= 5e-3 and l_err <= 1e-2):
         raise AssertionError("kernel fit disagrees with the plain fit")
 
+    # phase_bus runs phase 6's full 300 iterations; here ``iters``
+    full = dataclasses.replace(cfg, max_iterations=iters)
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = fit_poses(init, batch, cam, cfg)
+    res = fit_poses(init, batch, cam, full)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
@@ -1157,7 +1172,8 @@ def phase_fit(results, iters_check=5):
     d0 = float((init.translation - gt.translation).norm(dim=-1).mean())
     d1 = float((res.params.translation - gt.translation).norm(dim=-1).mean())
     log(f"fit_poses phase-6 default (8 objects, 2048 faces, 4096 points, "
-        f"1024²): {res.num_iters} iters in {dt:.2f} s "
+        f"1024², {iters} of its 300 iterations): {res.num_iters} iters in "
+        f"{dt:.2f} s "
         f"({1000 * dt / max(res.num_iters, 1):.1f} ms/iter); loss "
         f"{float(l0.mean()):.4f} -> {float(res.losses.mean()):.4f}; mean "
         f"translation error {d0:.4f} -> {d1:.4f} m; launches {counts}")
@@ -1218,6 +1234,597 @@ def fit_split(init, batch, cam, cfg, short=5):
         f"most time: {listed(top_short)}; by the operator that launched "
         f"them: {listed(ops_short)}")
 
+
+# phase_bus: a synthetic room on the output bus at phase 6's real size. The
+# camera sits at the world origin looking down +z (the view frame is the
+# world frame: +x left, +y up); the image is 960×1280 at a 1100-px focal,
+# the floor the plane y = −1.2, the back wall z = 8.5.
+BUS_HW = (960, 1280)
+BUS_FOCAL = 1100.0
+BUS_VGGT = 518              # one VGGT frame: 518² points
+BUS_FLOOR_Y = -1.2
+BUS_WALL_Z = 8.5
+BUS_GRID = 29               # each box face an n×n quad grid: ~20k faces/object
+# label, boxes (lo, hi) in the asset frame, scale, yaw, (x, z) on the floor
+# or (x, y, z) on the wall. Every shape is mirror-symmetric in its x (as
+# most furniture is) and has no yaw symmetry; every footprint is oblong
+# (ROADMAP Queue 3 r); no yaw is on the 45° search grid. The symmetry
+# matters: phase 6 fits on-floor objects in a left-handed plane frame, the
+# mirror image (ROADMAP Queue 3 s), which a symmetric shape absorbs.
+BUS_OBJECTS = [
+    ("sofa", [((-1.0, -0.5, -0.45), (1.0, -0.1, 0.45)),
+              ((-1.0, -0.1, 0.25), (1.0, 0.35, 0.45)),
+              ((-1.0, -0.1, -0.45), (-0.8, 0.15, 0.25)),
+              ((0.8, -0.1, -0.45), (1.0, 0.15, 0.25))], 0.9, 2.0, (2.09, 5.0)),
+    ("bench", [((-0.9, -0.25, -0.3), (0.9, 0.1, 0.3)),
+               ((-0.9, 0.1, 0.2), (0.9, 0.45, 0.3))], 0.8, 1.15, (1.4, 7.0)),
+    ("table", [((-0.8, 0.3, -0.45), (0.8, 0.4, 0.45)),
+               ((-0.8, -0.5, -0.45), (-0.7, 0.3, 0.45)),
+               ((0.7, -0.5, -0.45), (0.8, 0.3, 0.45)),
+               ((-0.7, -0.1, 0.35), (0.7, 0.3, 0.45))], 0.7, -0.4, (-0.2, 5.5)),
+    ("cabinet", [((-0.4, -0.6, -0.25), (0.4, 0.6, 0.25)),
+                 ((-0.4, 0.45, -0.45), (0.4, 0.6, -0.25))], 0.75, -1.0,
+     (-1.65, 7.0)),
+    ("chair", [((-0.45, -0.5, -0.35), (0.45, -0.05, 0.35)),
+               ((-0.45, -0.05, 0.2), (0.45, 0.5, 0.35))], 0.8, 0.3,
+     (-1.87, 4.2)),
+    ("shelf", [((-0.6, -0.05, -0.2), (0.6, 0.05, 0.2)),
+               ((-0.6, -0.35, 0.1), (0.6, -0.05, 0.2)),
+               ((-0.3, 0.05, -0.1), (0.3, 0.35, 0.2))], 0.9, -0.3,
+     (0.0, 1.5, 7.9)),
+    ("picture", [((-0.5, -0.3, 0.0), (0.5, 0.3, 0.2)),
+                 ((-0.3, -0.45, -0.15), (0.3, -0.3, 0.2))], 0.8, 0.35,
+     (2.8, 1.3, 7.8)),
+    ("speaker", [((-0.25, -0.4, -0.15), (0.25, 0.4, 0.15)),
+                 ((-0.15, 0.1, -0.3), (0.15, 0.3, -0.15))], 0.9, 0.5,
+     (-2.59, 1.2, 7.8)),
+]
+# the shapes' own mirror: x → −x in the asset frame
+BUS_MIRROR = (-1.0, 1.0, 1.0)
+
+
+def _yaw_matrix(yaw):
+    """The pipeline's yaw rotation, applied to row vectors as x @ R."""
+    import numpy as np
+
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.asarray([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+
+
+def _grid_box(lo, hi, n):
+    """A closed box mesh from lo to hi, each face an n×n grid of quads
+    (12·n² faces), welded."""
+    import numpy as np
+
+    from regen3d_tpu_torch.utils.meshproc import weld_vertices
+
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    g = np.linspace(0.0, 1.0, n + 1)
+    a, b = np.meshgrid(g, g, indexing="ij")
+    quad = np.arange((n + 1) * (n + 1)).reshape(n + 1, n + 1)
+    q0, q1 = quad[:-1, :-1].ravel(), quad[1:, :-1].ravel()
+    q2, q3 = quad[1:, 1:].ravel(), quad[:-1, 1:].ravel()
+    verts, faces = [], []
+    for axis in range(3):
+        u, w = [k for k in range(3) if k != axis]
+        for side in (0.0, 1.0):
+            p = np.empty((a.size, 3))
+            p[:, axis] = side
+            p[:, u], p[:, w] = a.ravel(), b.ravel()
+            f = np.concatenate([np.stack([q0, q1, q2], -1),
+                                np.stack([q0, q2, q3], -1)])
+            if (side == 1.0) == (axis == 1):     # outward winding
+                f = f[:, ::-1]
+            faces.append(f + sum(len(v) for v in verts))
+            verts.append(lo + p * (hi - lo))
+    return weld_vertices(np.concatenate(verts).astype(np.float32),
+                         np.concatenate(faces))
+
+
+def bus_objects(grid=BUS_GRID):
+    """Each object's asset submeshes (name, verts, faces) in its asset frame
+    and its true pose: (label, submeshes, boxes, scale, yaw, translation).
+    Floor objects stand with their lowest point on the floor."""
+    import numpy as np
+
+    out = []
+    for label, boxes, scale, yaw, where in BUS_OBJECTS:
+        subs = [(f"{label}_{i}", *_grid_box(lo, hi, grid))
+                for i, (lo, hi) in enumerate(boxes)]
+        if len(where) == 2:
+            bottom = min(lo[1] for lo, _ in boxes)
+            t = np.asarray([where[0], BUS_FLOOR_Y - scale * bottom, where[1]])
+        else:
+            t = np.asarray(where, np.float64)
+        out.append((label, subs, boxes, scale, yaw, t))
+    return out
+
+
+def _bus_rays(h, w, fy, fx, dev):
+    """Unit-depth ray directions (z = 1) through the pixel centres of an
+    h×w grid spanning the image, (h·w, 3), the P3D-sign pinhole."""
+    import torch
+
+    v, u = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float64),
+                          torch.arange(w, device=dev, dtype=torch.float64),
+                          indexing="ij")
+    x = (w / 2.0 - (u + 0.5)) / fx
+    y = (h / 2.0 - (v + 0.5)) / fy
+    return torch.stack([x, y, torch.ones_like(x)], -1).reshape(-1, 3)
+
+
+def bus_cast(objs, h, w, dev):
+    """The front-most surface along each pixel's ray of an h×w grid over
+    the bus image: (depth (h·w,), id (h·w,)) with ids 0..7 the objects, 8
+    the floor and 9 the back wall. Exact ray-box slab tests against the
+    objects' boxes, in f64."""
+    import torch
+
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    d = _bus_rays(h, w, BUS_FOCAL * h / BUS_HW[0], BUS_FOCAL * w / BUS_HW[1],
+                  dev)
+    inf = torch.full((d.shape[0],), float("inf"), dtype=torch.float64,
+                     device=dev)
+    best = torch.where(d[:, 2] > 0, BUS_WALL_Z / d[:, 2], inf)
+    ident = torch.full_like(best, 9, dtype=torch.int64)
+    lam = torch.where(d[:, 1] < 0, BUS_FLOOR_Y / d[:, 1], inf)
+    take = lam < best
+    best, ident = torch.where(take, lam, best), torch.where(take, 8, ident)
+    for k, (_label, _subs, boxes, scale, yaw, t) in enumerate(objs):
+        Rt = f64(_yaw_matrix(yaw)).T
+        o = (-f64(t)) @ Rt / scale            # the camera in the asset frame
+        dl = d @ Rt / scale
+        dl = torch.where(dl.abs() < 1e-12, torch.full_like(dl, 1e-12), dl)
+        for lo, hi in boxes:
+            t1, t2 = (f64(lo) - o) / dl, (f64(hi) - o) / dl
+            near = torch.minimum(t1, t2).max(-1).values
+            far = torch.maximum(t1, t2).min(-1).values
+            hit = (far >= near) & (near > 0)
+            lam = torch.where(hit, near, inf)
+            take = lam < best
+            best = torch.where(take, lam, best)
+            ident = torch.where(take, k, ident)
+    return best, ident
+
+
+def build_bus(root, dev, hw=BUS_HW, vggt=BUS_VGGT, grid=BUS_GRID):
+    """Write the synthetic room's phase-5/6 inputs under root/output with
+    the port's writers: camera.npz, the 960×1280 findings (8 objects and
+    the floor, on white, named by finding_stem), scene_vggt.ply (one
+    518² frame of front-most points with depth noise), points_emptyRoom.ply
+    (the floor and back wall, raw VGGT frame) and one asset GLB per object
+    (a submesh per box). Returns {stem: (label, submeshes, scale, yaw, t)}."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.artifacts import Artifacts, finding_stem
+    from regen3d_tpu_torch.camera import save_camera_npz
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.transforms.conventions import (
+        blender_to_p3d,
+        p3d_to_blender,
+    )
+    from regen3d_tpu_torch.utils.glb import MeshData, SceneData, save_glb
+    from regen3d_tpu_torch.utils.image import save_image
+    from regen3d_tpu_torch.utils.ply import save_ply
+
+    art = Artifacts(default_config(str(root / "output")))
+    h, w = hw
+    focal = BUS_FOCAL * h / BUS_HW[0]
+    save_camera_npz(art.camera_npz, p3d_to_blender(np.eye(3), np.zeros(3)),
+                    focal, (w, h))
+    objs = bus_objects(grid)
+    gen = np.random.default_rng(0)
+
+    # the VGGT frame: front-most points, 1 mm of depth noise per metre
+    lam, _ = bus_cast(objs, vggt, vggt, dev)
+    rays = _bus_rays(vggt, vggt, focal * vggt / h, focal * vggt / w, dev)
+    lam = lam.cpu().numpy() * (1.0 + 1e-3 * gen.standard_normal(lam.shape[0]))
+    world = rays.cpu().numpy() * lam[:, None]
+    R, _ = blender_to_p3d(np.eye(4))          # scene_vggt.ply's frame
+    store = world.copy()
+    store[:, 1] *= -1
+    save_ply(art.scene_cloud_ply, (store @ R).astype(np.float32))
+    # the empty room in the raw VGGT frame: world = diag(2, −2, −2)·raw
+    fx, fz = gen.uniform(-4.5, 4.5, 20000), gen.uniform(1.0, BUS_WALL_Z, 20000)
+    wx, wy = gen.uniform(-4.5, 4.5, 20000), gen.uniform(BUS_FLOOR_Y, 2.5, 20000)
+    room = np.concatenate([
+        np.stack([fx, np.full_like(fx, BUS_FLOOR_Y), fz], -1),
+        np.stack([wx, wy, np.full_like(wx, BUS_WALL_Z)], -1)])
+    save_ply(art.points_empty_ply, (room / [2.0, -2.0, -2.0]).astype(np.float32))
+
+    # the findings: every pixel whose front-most surface is the object
+    _, ident = bus_cast(objs, h, w, dev)
+    ident = ident.reshape(h, w).cpu().numpy()
+    os.makedirs(art.findings_fullsize, exist_ok=True)
+    colours = gen.integers(30, 220, (9, 3))
+    truth = {}
+    for k, label in enumerate([o[0] for o in objs] + ["floor"]):
+        mask = ident == k
+        ys, xs = np.nonzero(mask)
+        stem = finding_stem(label, (round(xs.mean()), round(ys.mean())))
+        img = np.full((h, w, 3), 255, np.uint8)
+        img[mask] = colours[k]
+        save_image(os.path.join(art.findings_fullsize, f"{stem}.png"), img)
+        if k < len(objs):
+            _label, subs, _boxes, scale, yaw, t = objs[k]
+            save_glb(art.asset_glb(stem), SceneData(meshes=[
+                MeshData(name=name, vertices=v, faces=f)
+                for name, v, f in subs]))
+            truth[stem] = (label, subs, scale, yaw, t)
+    return truth
+
+
+def bus_pose_errors(glb_path, truth):
+    """(translation error m, rotation error °) of a fitted GLB against the
+    true pose: the distance between the centroids of its vertices and of
+    the asset's vertices at the true pose, and the angle of the rotation
+    that best maps the one set onto the other (Kabsch; vertices correspond
+    one to one, submeshes matched by name), the lesser over the shape and
+    its mirror image (BUS_MIRROR), whose surfaces are the same."""
+    import numpy as np
+
+    from regen3d_tpu_torch.utils.glb import load_glb
+
+    _label, subs, scale, yaw, t = truth
+    got = {m.name: m.vertices for m in load_glb(glb_path).meshes}
+    fit = np.concatenate([got[name] for name, _v, _f in subs]).astype(np.float64)
+    a = fit - fit.mean(0)
+    errs = []
+    # the true pose, and the true pose of the shape's mirror image (the
+    # same surface, its vertices swapped with their mirror partners)
+    for mirror in ((1.0, 1.0, 1.0), BUS_MIRROR):
+        ref = np.concatenate([(v * mirror * scale) @ _yaw_matrix(yaw) + t
+                              for _name, v, _f in subs])
+        b = ref - ref.mean(0)
+        u, _s, vt = np.linalg.svd(a.T @ b)
+        d = np.sign(np.linalg.det(u @ vt))
+        rot = u @ np.diag([1.0, 1.0, d]) @ vt
+        angle = np.degrees(np.arccos(np.clip((np.trace(rot) - 1) / 2, -1, 1)))
+        errs.append((float(np.linalg.norm(fit.mean(0) - ref.mean(0))),
+                     float(angle)))
+    return min(errs, key=lambda e: e[1])
+
+
+class _FitSpy:
+    """Stands in for phase6_pose.fit_poses and records each call's
+    (init, batch, camera, config, result); the fit itself is unchanged."""
+
+    def __init__(self, fit):
+        self.fit, self.calls = fit, []
+
+    def __call__(self, init, batch, cam, cfg):
+        res = self.fit(init, batch, cam, cfg)
+        self.calls.append((init, batch, cam, cfg, res))
+        return res
+
+
+class _StageLog:
+    """Context manager: the last "stage breakdown" record phase 6 logs,
+    as (floor/cam, prep, fit, export, gif/debug s, objects)."""
+
+    NAME = "regen3d_tpu_torch.pipeline.phase6_pose"
+
+    def __enter__(self):
+        import logging
+
+        self.args = None
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if str(record.msg).startswith("phase6: stage breakdown"):
+                    outer.args = record.args
+
+        self.logger = logging.getLogger(self.NAME)
+        self.level = self.logger.level
+        self.handler = Handler()
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _bus_phases(cfg, spy):
+    """run_phases(cfg, [5, 6]) on the card with phase 6's fit recorded;
+    returns ({phase: s}, stage breakdown)."""
+    import torch
+
+    from regen3d_tpu_torch import orchestrator
+    from regen3d_tpu_torch.pipeline import phase6_pose
+
+    saved = phase6_pose.fit_poses
+    phase6_pose.fit_poses = spy
+    try:
+        with _StageLog() as stages:
+            timings = orchestrator.run_phases(cfg, [5, 6], device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        phase6_pose.fit_poses = saved
+    return timings, stages.args
+
+
+def bus_frame_check(batch, fit_cfg, cam, flat, n_obj=4):
+    """One fit-GIF frame batch (_write_gifs' renderer, 160 px high) of the
+    first ``n_obj`` objects on the card against the CPU (whose path the
+    tests hold to the JAX package): Phong colours
+    within 1e-3, face ids equal except where two faces lie at the same
+    depth within f32 rounding (1e-5 relative). Returns (colour error,
+    pixels with another face id, pixels covered)."""
+    import dataclasses
+
+    import torch
+
+    from regen3d_tpu_torch.pipeline.phase6_pose import render_fit_frame
+
+    sub = batch._replace(**{f: getattr(batch, f)[:n_obj] for f in batch._fields
+                            if f not in ("bbox_lo", "bbox_hi")})
+    h = 160
+    w = int(round(cam.image_size[1] * h / cam.image_size[0]))
+    gcam = cam.rescaled(h, w)
+    img_g, frag_g = render_fit_frame(flat[:n_obj], sub, fit_cfg, gcam)
+    cam_c = dataclasses.replace(gcam, **{f: getattr(gcam, f).cpu()
+                                         for f in ("R", "T", "focal",
+                                                   "principal")})
+    img_c, frag_c = render_fit_frame(flat[:n_obj].cpu(),
+                                     type(sub)(*(x.cpu() for x in sub)),
+                                     fit_cfg, cam_c)
+    err = float((img_g.cpu() - img_c).abs().max())
+    other = frag_g.face_idx.cpu() != frag_c.face_idx
+    zg, zc = frag_g.depth.cpu()[other], frag_c.depth[other]
+    ties = bool(((zg - zc).abs() <= 1e-5 * zc.abs()).all())
+    covered = int((frag_c.face_idx >= 0).sum())
+    if not (err <= 1e-3 and ties and covered > 0):
+        raise AssertionError(
+            f"fit frame: card vs CPU colour error {err:.3e} (tol 1e-3), "
+            f"{int(other.sum())} pixels with another face, z-ties only: {ties}")
+    return err, int(other.sum()), covered
+
+
+def _glb_vertices(path):
+    """A GLB's vertices, submeshes in name order."""
+    import numpy as np
+
+    from regen3d_tpu_torch.utils.glb import load_glb
+
+    meshes = sorted(load_glb(str(path)).meshes, key=lambda m: m.name)
+    return np.concatenate([m.vertices for m in meshes])
+
+
+def bus_small_check():
+    """Phases 5 and 6 on a small bus (240×320 findings, a 160² VGGT frame,
+    boxes of 6×6-quad faces; 96 × 128 renders, 128 faces, 5 iterations,
+    masks eroded by 1 px) on the card against the CPU, whose path the CPU
+    tests hold to the JAX package; RANSAC takes the same draw on both.
+    Returns (largest share of cloud points found on one device only, least
+    |cos| between two normals of one point, share of points whose normals
+    agree within 1e-5, largest fitted-vertex difference over its
+    tolerance). Points project through the camera in another rounding
+    (cuBLAS fuses the products), and neighbours whose distances tie within
+    rounding rank either way: the clouds may differ by a few points and a
+    normal where its neighbourhood does. The fits may differ by one Adam
+    step of lr on the translation and on the yaw parameter (× 8), as
+    against the JAX package (ROADMAP Queue 3 g)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch import orchestrator
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.pipeline import phase6_pose
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    root = ROOT / "build" / "bus_small"
+    shutil.rmtree(root, ignore_errors=True)
+    truth = build_bus(root / "bus", "cpu", hw=(240, 320), vggt=160, grid=6)
+    over = dict(write_fit_gifs=False, image_size_DR=96, fit_max_faces=128,
+                fit_max_points=512, max_iterations=5,
+                early_stop_min_iterations=5, mask_shrink_pixels=1,
+                mask_shrink_iterations=1)
+    devs = ("cuda", "cpu")
+    cfgs = {}
+    for d in devs:
+        shutil.copytree(root / "bus", root / d)
+        cfgs[d] = default_config(str(root / d / "output"), **over)
+        orchestrator.run_phases(cfgs[d], [5], device=d)
+    clouds = root / "cpu" / "output" / "pointclouds"
+    floor = [f for f in clouds.iterdir() if f.name.startswith("floor")][0]
+    n_floor = len(load_ply(str(floor)).vertices)
+    gen = torch.Generator().manual_seed(int(cfgs["cpu"]["seed"]))
+    idx = torch.randint(0, n_floor, (2000, 3), generator=gen)
+    lr = float(cfgs["cpu"]["learning_rate"])
+    only, cos_min, agree, worst = 0.0, 1.0, 1.0, 0.0
+    for stem in list(truth) + [floor.stem]:
+        p = {d: load_ply(str(root / d / "output" / "pointclouds"
+                             / "normals" / f"{stem}_normals.ply"))
+             for d in devs}
+        rows = {d: {tuple(v): i for i, v in enumerate(p[d].vertices)}
+                for d in devs}
+        both = sorted(set(rows["cuda"]) & set(rows["cpu"]))
+        only = max(only, 1.0 - len(both) / max(len(rows["cpu"]), 1))
+        ng = p["cuda"].normals[[rows["cuda"][v] for v in both]]
+        nc = p["cpu"].normals[[rows["cpu"][v] for v in both]]
+        cos = np.abs((ng * nc).sum(-1))
+        cos_min = min(cos_min, float(cos.min()))
+        agree = min(agree, float((np.abs(ng - nc).max(-1) <= 1e-5).mean()))
+    for d in devs:
+        phase6_pose.run(cfgs[d], device=d, ransac_idx=idx.to(d))
+    for stem in truth:
+        vg, vc = (_glb_vertices(root / d / "output" / "glb" / f"{stem}.glb")
+                  for d in devs)
+        r = np.linalg.norm(vc - vc.mean(0), axis=-1).max()
+        tol = 2 * lr * (1 + 8.0 * r)
+        worst = max(worst, float(np.abs(vg - vc).max()) / tol)
+    if not (only <= 0.005 and agree >= 0.98 and worst <= 1.0):
+        raise AssertionError(
+            f"small bus, card vs CPU: {only:.3%} of a cloud on one device "
+            f"only (tol 0.5%), {agree:.3%} of normals within 1e-5 (tol "
+            f"98%), fitted vertices at {worst:.2f} of one Adam step")
+    return only, cos_min, agree, worst
+
+
+def phase_bus(results):
+    """Phases 5 and 6 through the port's orchestrator on a synthetic room's
+    output bus at phase 6's real size (960×1280 findings → 1024 × 1344
+    renders, 8 objects of ~20k faces decimated to 2,048, 4,096 target
+    points, 300 iterations). First a run with 0 iterations gives the fit's
+    batch, initial poses and initial losses; at that batch the silhouette
+    kernels are held to their plain versions (one call, timed), a
+    5-iteration fit on the kernels to one on the plain edge path, and one
+    GIF frame batch rendered on the card to the CPU's. Then the counted run
+    with the defaults: every artifact written, every loss finite and below
+    its initial value. Beside it the pose errors against the true poses,
+    initial and fitted, and those of a fit without the silhouette term
+    (silhoutte_loss 0), which are reported, not gated: phase 6's default
+    objective does not reduce them for every object (PERF.md §6).
+    Last, phases 5 and 6 on a small bus on the card against the CPU
+    (bus_small_check)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.ops import silhouette_kernel as sk
+    from regen3d_tpu_torch.pipeline import phase6_pose
+    from regen3d_tpu_torch.pipeline.pose_fit import (
+        compute_batch_bins,
+        fit_poses,
+        pose_transform,
+        raster_path,
+    )
+
+    root = ROOT / "build" / "bus"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    truth = build_bus(root / "bus", "cuda")
+    t_build = time.perf_counter() - t0
+    for run in ("init", "main", "no_sil"):
+        shutil.copytree(root / "bus", root / run)
+
+    def errors(run):
+        return {s: bus_pose_errors(str(root / run / "output" / "glb"
+                                       / f"{s}.glb"), t)
+                for s, t in truth.items()}
+
+    # the fit's batch, initial poses and losses: 0 iterations
+    spy = _FitSpy(phase6_pose.fit_poses)
+    _bus_phases(default_config(str(root / "init" / "output"),
+                               write_fit_gifs=False, max_iterations=0,
+                               early_stop_min_iterations=0), spy)
+    init, batch, cam, cfg, res0 = spy.calls[-1]
+    n_faces = batch.faces.shape[1]
+    path = raster_path(cfg, n_faces, "cuda")
+    if cfg.image_hw != (1024, 1344) or path != "edge_kernel":
+        raise AssertionError(f"bus fit at {cfg.image_hw} took the {path} path")
+    before = errors("init")
+
+    # the kernels at this batch: one call against the plain versions
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bins = compute_batch_bins(init, batch, cam, cfg)
+    with torch.no_grad():
+        vs = cam.view_to_screen(cam.world_to_view(pose_transform(init, batch,
+                                                                 cfg)))
+        co, nvalid, va, uv = sk.edge_tile_inputs(
+            vs, batch.faces, cfg.image_hw, cfg.sigma, batch.faces_mask,
+            faces_per_tile=cfg.faces_per_tile, bins=bins)
+    sil = sil_case(sk, f"bus batch ({batch.faces.shape[0]} objects, "
+                   f"{cfg.image_hw[0]}×{cfg.image_hw[1]}, sigma {cfg.sigma:g})",
+                   nvalid, co, va, uv, sk.tile_consts(cfg.image_hw, cfg.sigma),
+                   gen, timed=True)
+    # 5 iterations on the kernels against the plain edge path (phase_fit's
+    # tolerances: one Adam step on params, 1e-2 relative on losses)
+    short = dataclasses.replace(cfg, max_iterations=5, early_stop_min_iters=5)
+    plain = dataclasses.replace(short, use_pallas_raster=False)
+    r_k = fit_poses(init, batch, cam, short)
+    r_p = fit_poses(init, batch, cam, plain)
+    torch.cuda.synchronize()
+    p_err = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
+                                                           r_p.params))
+    l_err = float(((r_k.losses - r_p.losses).abs() / r_p.losses.abs()).max())
+    if not (p_err <= 5e-3 and l_err <= 1e-2):
+        raise AssertionError(f"bus fit, 5 iterations: kernels vs plain params "
+                             f"{p_err:.3e} (tol 5e-3), losses {l_err:.3e} "
+                             f"(tol 1e-2)")
+    flat = torch.cat([init.translation, init.yaw[:, None], init.rot_aa,
+                      init.log_scale[:, None]], -1)
+    f_err, f_other, f_cov = bus_frame_check(batch, cfg, cam, flat)
+
+    # the counted run: phases 5 and 6 with the defaults
+    spy = _FitSpy(phase6_pose.fit_poses)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    timings, stages = _bus_phases(default_config(
+        str(root / "main" / "output"), write_fit_gifs=False), spy)
+    counts = dict(kernels.LAUNCHES)
+    res = spy.calls[-1][-1]
+    floor = int(spy.calls[-1][1].on_floor.sum())
+    out = root / "main" / "output"
+    missing = [p for s in truth for p in (
+        out / "glb" / f"{s}.glb", out / "pointclouds" / f"{s}.ply",
+        out / "pointclouds" / "normals" / f"{s}_normals.ply",
+        out / "masks" / f"{s}.png")] + [
+        root / "main" / "tmp" / "debug" / n
+        for n in ("FLOOR.ply", "FLOOR_RESIDUALS.ply", "PLANE_SAMPLED.ply")]
+    missing = [str(p) for p in missing if not p.exists()]
+    after = errors("main")
+    # the same fit without the silhouette term, for comparison
+    nosil = _FitSpy(phase6_pose.fit_poses)
+    _bus_phases(default_config(str(root / "no_sil" / "output"),
+                               write_fit_gifs=False, silhoutte_loss=0.0), nosil)
+    third = errors("no_sil")
+    small = bus_small_check()
+
+    t_floor, t_prep, t_fit, t_export, _t_gif, _b = stages
+    ms_iter = 1e3 * t_fit / max(res.num_iters, 1)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    errs = "; ".join(
+        f"{s}: {before[s][0]:.3f} → {after[s][0]:.3f} ({third[s][0]:.3f}) m, "
+        f"{before[s][1]:.1f} → {after[s][1]:.1f} ({third[s][1]:.1f})°"
+        for s in truth)
+    losses = ", ".join(f"{float(a):.4f} → {float(b):.4f}"
+                       for a, b in zip(res0.losses, res.losses))
+    t = sil["ms"]
+    log(f"bus (phases 5 and 6 through the orchestrator, {len(truth)} objects, "
+        f"{floor} on the floor, {cfg.image_hw[0]}×{cfg.image_hw[1]} "
+        f"{path}; bus built in {t_build:.1f} s): phase 5 "
+        f"{timings[5]:.2f} s, phase 6 {timings[6]:.2f} s (floor/cam "
+        f"{t_floor:.2f}, prep {t_prep:.2f}, fit {t_fit:.2f}, export "
+        f"{t_export:.2f} s), {res.num_iters} iterations, {ms_iter:.1f} ms an "
+        f"iteration; losses initial → fitted: {losses}; pose error "
+        f"(translation, rotation) initial → fitted (without the silhouette "
+        f"term, {nosil.calls[-1][-1].num_iters} iterations): {errs}; "
+        f"5 iterations kernels vs plain: params {p_err:.3e}, losses "
+        f"{l_err:.3e}; fit frame card vs CPU: colour {f_err:.3e}, {f_other} "
+        f"of {f_cov} covered pixels at z-ties; small bus card vs CPU: "
+        f"{small[0]:.3%} of a cloud on one device only, normals |cos| ≥ "
+        f"{small[1]:.6f}, {small[2]:.2%} within 1e-5, fitted vertices at "
+        f"{small[3]:.2f} of one Adam step; silhouette at "
+        f"{cfg.image_hw[0]}×{cfg.image_hw[1]}: fwd {t['fk']:.4f} ms (bound "
+        f"{sil['bound']['fwd'][0]:.4f}, {sil['bound']['fwd'][1]}; plain "
+        f"{t['fp']:.3f}), bwd {t['bk']:.4f} ms (bound "
+        f"{sil['bound']['bwd'][0]:.4f}, {sil['bound']['bwd'][1]}; plain "
+        f"{t['bp']:.3f}); launches {counts}; {smi}")
+    if missing:
+        raise AssertionError(f"bus: missing artifacts {missing}")
+    if counts["silhouette_fwd"] == 0 or counts["silhouette_bwd"] == 0:
+        raise AssertionError("the bus run did not launch the silhouette "
+                             "kernels")
+    if not (bool(torch.isfinite(res.losses).all())
+            and bool((res.losses < res0.losses).all())):
+        raise AssertionError("bus: a fit loss is not finite or did not fall")
+    if floor < 3:
+        raise AssertionError(f"bus: {floor} objects on the floor, 3 wanted")
+    results["bus_launches"] = counts
 
 def _scene_inputs(cfg, dev, k=8, seed=0):
     """bench.py's scene_step workload: 2 frames, 8 box masks, 512-vertex
@@ -1869,6 +2476,7 @@ def main() -> int:
     phase_bwd_kernels(results)
     phase_scene(results)
     phase_fit(results)
+    phase_bus(results)
     phase_sam(results)
     phase_dit(results)
     phase_sam_grad(results)

@@ -8,9 +8,13 @@ pinhole ``u = cx − fx·x/z``, ``v = cy − fy·y/z``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from regen3d_tpu_torch.transforms.conventions import blender_to_p3d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +29,26 @@ class Camera:
 
     def world_to_view(self, points: torch.Tensor) -> torch.Tensor:
         return points @ self.R + self.T
+
+    def view_to_world(self, points: torch.Tensor) -> torch.Tensor:
+        return (points - self.T) @ self.R.T
+
+    @property
+    def center(self) -> torch.Tensor:
+        """Camera centre in world coordinates."""
+        return -self.T @ self.R.T
+
+    def project(self, points_world: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """World points (..., 3) → (screen uv (..., 2), depth (...,))."""
+        s = self.view_to_screen(self.world_to_view(points_world))
+        return s[..., :2], s[..., 2]
+
+    def unproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Screen pixels (..., 2) + view-space depth (...,) → world (..., 3)."""
+        x = (self.principal[0] - uv[..., 0]) * depth / self.focal[0]
+        y = (self.principal[1] - uv[..., 1]) * depth / self.focal[1]
+        return self.view_to_world(torch.stack([x, y, depth], dim=-1))
 
     def view_to_screen(self, points_view: torch.Tensor) -> torch.Tensor:
         """View-space (..., 3) → (u, v, z) screen coords with depth kept."""
@@ -44,3 +68,48 @@ class Camera:
                                    dtype=torch.float32,
                                    device=self.focal.device),
             image_size=(height, width))
+
+
+def camera_from_npz(
+    npz_path: str,
+    render_hw: Optional[Tuple[int, int]] = None,
+    znear: float = 0.1,
+    zfar: float = 50.0,
+    device="cuda",
+) -> Camera:
+    """Load the camera.npz artifact (keys: extrinsic, focal, image_size,
+    camera_angle_x) into a :class:`Camera`, optionally for another render
+    resolution: B2P of the stored extrinsic, focal scaled by the height
+    ratio, principal point at the image centre."""
+    data = np.load(npz_path)
+    R, T = blender_to_p3d(np.asarray(data["extrinsic"], dtype=np.float64))
+    orig_w, orig_h = [int(x) for x in
+                      np.asarray(data["image_size"]).reshape(-1)[:2]]
+    if render_hw is None:
+        render_hw = (orig_h, orig_w)
+    h, w = render_hw
+    f = float(data["focal"]) * (h / orig_h)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
+    return Camera(R=f32(R), T=f32(T), focal=f32([f, f]),
+                  principal=f32([w / 2.0, h / 2.0]), image_size=(h, w),
+                  znear=znear, zfar=zfar)
+
+
+def save_camera_npz(
+    npz_path: str,
+    extrinsic_blender: np.ndarray,
+    focal_px: float,
+    image_wh: Tuple[int, int],
+) -> None:
+    """Write the camera.npz artifact with the reference's keys and dtypes
+    (minimal_demo_vggt.py:189-204)."""
+    os.makedirs(os.path.dirname(os.path.abspath(npz_path)), exist_ok=True)
+    width, height = image_wh
+    camera_angle_x = float(2.0 * np.arctan(width / (2.0 * float(focal_px))))
+    np.savez(
+        npz_path,
+        extrinsic=np.asarray(extrinsic_blender, dtype=np.float32),
+        focal=np.float32(focal_px),
+        image_size=np.array([width, height], dtype=np.int32),
+        camera_angle_x=np.float32(camera_angle_x),
+    )

@@ -1,5 +1,7 @@
 """Geometry and attention ops of the port."""
 
+import contextlib
+
 import torch
 
 
@@ -13,3 +15,18 @@ def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     if hi is not None:
         x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype, device=x.device))
     return x
+
+
+@contextlib.contextmanager
+def full_f32():
+    """No TF32 in matmuls or convolutions: the silhouette backward, the
+    fit's sums and the kNN distance expansion are specified at full f32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -12,11 +12,14 @@ spans [-1, 1]), so sigma values carry over from the reference.
 * :func:`soft_silhouette_edge` is the tile-binned min-edge formulation in
   plain PyTorch; ``ops/silhouette_kernel.py`` runs the same binned tiles
   through the CUDA kernels.
+* :func:`rasterize_hard` is the non-differentiable z-buffer (phase 6's fit
+  GIFs, phase 8), with :func:`interpolate_attributes` and
+  :func:`phong_shade` on its fragments.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,27 +66,38 @@ def _point_segment_sqdist(p, a, b):
     return torch.sum(d * d, -1)
 
 
-def _face_coverage(pix: torch.Tensor, tri: torch.Tensor):
-    """Signed squared distance (negative inside) and inside mask for every
-    (pixel, face): pix (P, 2), tri (..., C, 3, 2) → (..., P, C) each.
-
-    The JAX function also returns screen barycentrics, which only the hard
-    rasterizer reads; that consumer is not ported yet."""
-    p = pix[:, None, :]                                   # (P, 1, 2)
-    v0 = tri[..., None, :, 0, :]                          # (..., 1, C, 2)
-    v1 = tri[..., None, :, 1, :]
-    v2 = tri[..., None, :, 2, :]
-
+def _edge_functions(p, v0, v1, v2):
+    """Edge functions (cross-product z) e0, e1, e2 of p against the edges
+    v0v1, v1v2, v2v0, and the doubled signed area; broadcasting."""
     def edge(a, b):
         return ((b[..., 0] - a[..., 0]) * (p[..., 1] - a[..., 1])
                 - (b[..., 1] - a[..., 1]) * (p[..., 0] - a[..., 0]))
 
-    e0, e1, e2 = edge(v0, v1), edge(v1, v2), edge(v2, v0)
     area = ((v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1])
             - (v1[..., 1] - v0[..., 1]) * (v2[..., 0] - v0[..., 0]))
+    return edge(v0, v1), edge(v1, v2), edge(v2, v0), area
+
+
+def _inside(e0, e1, e2, area):
     s = torch.sign(area)
     s = torch.where(s == 0, torch.ones_like(s), s)
-    inside = (e0 * s >= 0) & (e1 * s >= 0) & (e2 * s >= 0)
+    return (e0 * s >= 0) & (e1 * s >= 0) & (e2 * s >= 0)
+
+
+def _barycentric(e0, e1, e2, area):
+    """Screen barycentrics (weights of v0, v1, v2) from the edge functions."""
+    denom = torch.where(area.abs() < 1e-12, torch.full_like(area, 1e-12), area)
+    return torch.stack([e1 / denom, e2 / denom, e0 / denom], -1)
+
+
+def _face_coverage(pix: torch.Tensor, tri: torch.Tensor):
+    """Signed squared distance (negative inside) and inside mask for every
+    (pixel, face): pix (P, 2), tri (..., C, 3, 2) → (..., P, C) each."""
+    p = pix[:, None, :]                                   # (P, 1, 2)
+    v0 = tri[..., None, :, 0, :]                          # (..., 1, C, 2)
+    v1 = tri[..., None, :, 1, :]
+    v2 = tri[..., None, :, 2, :]
+    inside = _inside(*_edge_functions(p, v0, v1, v2))
     d_edge = torch.minimum(_point_segment_sqdist(p, v0, v1),
                            torch.minimum(_point_segment_sqdist(p, v1, v2),
                                          _point_segment_sqdist(p, v2, v0)))
@@ -266,3 +280,128 @@ def compute_silhouette_bins(
         score, idx = torch.sort(overlap.float(), dim=-1, descending=True,
                                 stable=True)
         return idx[..., :k].int(), score[..., :k] > 0.5
+
+
+_BIG = 1e30
+
+
+class Fragments(NamedTuple):
+    """Per-pixel hard z-buffer output for a batch of objects."""
+
+    face_idx: torch.Tensor  # (B, H, W) int32, -1 = background
+    bary: torch.Tensor      # (B, H, W, 3) perspective-corrected barycentrics
+    depth: torch.Tensor     # (B, H, W) view-space z (+inf = background)
+
+
+def rasterize_hard(
+    verts_screen: torch.Tensor,
+    faces: torch.Tensor,
+    image_hw: Tuple[int, int],
+    faces_mask: Optional[torch.Tensor] = None,
+    znear: float = 1e-3,
+    chunk: int = 256,
+) -> Fragments:
+    """Non-differentiable z-buffer: for each pixel the nearest covering face
+    (perspective-correct depth), the lowest face index among equal depths,
+    as JAX's chunked argmin (first within a chunk, strict ``<`` across
+    chunks) gives it."""
+    h, w = image_hw
+    pix = _pixel_grid(h, w, verts_screen.device)
+    p = pix[:, None, :]
+    f = faces.shape[1]
+    chunk = min(chunk, f)
+    tri3 = gather_faces(verts_screen, faces)              # (B, F, 3, 3)
+    fmask = _faces_mask(faces, faces_mask)
+    best_z = torch.full(verts_screen.shape[:1] + (h * w,), _BIG,
+                        dtype=verts_screen.dtype, device=verts_screen.device)
+    best_i = torch.full_like(best_z, -1, dtype=torch.int32)
+    with torch.no_grad():
+        for c0 in range(0, f, chunk):
+            tri = tri3[:, c0:c0 + chunk]
+            zs = tri[..., 2]                              # (B, C, 3)
+            ok = fmask[:, c0:c0 + chunk] & torch.all(zs > znear, -1)
+            v = [tri[:, None, :, j, :2] for j in range(3)]  # (B, 1, C, 2)
+            e = _edge_functions(p, *v)
+            bary = _barycentric(*e)                       # (B, P, C, 3)
+            # perspective-correct depth: 1/z interpolates linearly on screen
+            inv_z = (bary / zs[:, None]).sum(-1)
+            zpix = 1.0 / torch.clamp_min(inv_z, 1e-12)
+            covered = _inside(*e) & ok[:, None, :]
+            zpix = torch.where(covered, zpix, torch.full_like(zpix, _BIG))
+            zmin, imin = zpix.min(-1)
+            take = zmin < best_z
+            best_z = torch.where(take, zmin, best_z)
+            best_i = torch.where(take, imin.int() + c0, best_i)
+        return _fragments_from_zbuffer(verts_screen, faces, best_z, best_i,
+                                       image_hw)
+
+
+def _fragments_from_zbuffer(verts_screen, faces, z, fid, image_hw
+                            ) -> Fragments:
+    """The winning faces' perspective-corrected barycentrics from a flat
+    (B, H·W) depth and face-id buffer."""
+    h, w = image_hw
+    pix = _pixel_grid(h, w, verts_screen.device)
+    f = faces.shape[1]
+    safe = torch.clamp(fid, 0, f - 1)
+    tri_win = gather_faces(verts_screen, gather_rows(faces, safe))  # (B, P, 3, 3)
+    v = [tri_win[..., j, :2] for j in range(3)]
+    bary_screen = _barycentric(*_edge_functions(pix, *v))
+    wgt = bary_screen / torch.clamp_min(tri_win[..., 2], 1e-12)
+    persp = wgt / torch.clamp_min(wgt.sum(-1, keepdim=True), 1e-12)
+    bg = fid < 0
+    b = fid.shape[0]
+    return Fragments(
+        face_idx=fid.reshape(b, h, w),
+        bary=torch.where(bg[..., None], torch.zeros_like(persp),
+                         persp).reshape(b, h, w, 3),
+        depth=torch.where(bg, torch.full_like(z, float("inf")),
+                          z).reshape(b, h, w))
+
+
+def interpolate_attributes(frag: Fragments, faces: torch.Tensor,
+                           vertex_attrs: torch.Tensor) -> torch.Tensor:
+    """Barycentric blend of per-vertex attributes (B, V, D) at each pixel →
+    (B, H, W, D), zeros on the background."""
+    b, h, w = frag.face_idx.shape
+    fid = frag.face_idx.reshape(b, -1)
+    tri_attr = gather_faces(vertex_attrs,
+                            gather_rows(faces, torch.clamp_min(fid, 0)))
+    out = torch.einsum("bpk,bpkd->bpd", frag.bary.reshape(b, -1, 3), tri_attr)
+    out = torch.where((fid >= 0)[..., None], out, torch.zeros_like(out))
+    return out.reshape(b, h, w, -1)
+
+
+def phong_shade(
+    frag: Fragments,
+    faces: torch.Tensor,
+    verts_world: torch.Tensor,
+    normals_world: torch.Tensor,
+    colors: torch.Tensor,
+    light_pos: torch.Tensor,
+    camera_pos: torch.Tensor,
+    ambient: float = 0.35,
+    diffuse: float = 0.6,
+    specular: float = 0.15,
+    shininess: float = 32.0,
+    background: float = 1.0,
+) -> torch.Tensor:
+    """Per-pixel Phong shading → (B, H, W, 3) in [0, 1] (pytorch3d
+    HardPhongShader + PointLights; reference render_utils.py:108-119).
+    ``light_pos`` and ``camera_pos`` are (3,), shared by the batch."""
+    pos = interpolate_attributes(frag, faces, verts_world)
+    nrm = interpolate_attributes(frag, faces, normals_world)
+    col = interpolate_attributes(frag, faces, colors)
+
+    def unit(x):
+        return x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True),
+                                   1e-8)
+
+    n, l, v = unit(nrm), unit(light_pos - pos), unit(camera_pos - pos)
+    ndl = (n * l).sum(-1, keepdim=True)
+    refl = 2 * ndl * n - l
+    spec = torch.clamp_min((refl * v).sum(-1, keepdim=True), 0.0) ** shininess
+    shaded = col * (ambient + diffuse * ndl.abs()) + specular * spec
+    bg = (frag.face_idx < 0)[..., None]
+    return torch.clamp(torch.where(bg, torch.full_like(shaded, background),
+                                   shaded), 0.0, 1.0)

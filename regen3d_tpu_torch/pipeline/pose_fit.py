@@ -12,14 +12,16 @@ same stop rule. Losses and semantics follow the JAX package:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from regen3d_tpu_torch.camera import Camera
+from regen3d_tpu_torch.ops import full_f32
+from regen3d_tpu_torch.ops.knn import chamfer_loss
 from regen3d_tpu_torch.ops.losses import bbox_hinge_loss, silhouette_loss
 from regen3d_tpu_torch.ops.point_mesh import point_mesh_face_distance_fast
 from regen3d_tpu_torch.ops.rasterize import (
@@ -220,21 +222,6 @@ def _flatten_params(p: PoseParams) -> torch.Tensor:
                       p.log_scale[:, None]], -1)
 
 
-@contextlib.contextmanager
-def full_f32():
-    """No TF32 in matmuls or convolutions: the silhouette backward and the
-    fit's sums are specified at full f32."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def fit_poses(init_params: PoseParams, batch: ObjectBatch, camera: Camera,
               cfg: FitConfig) -> FitResult:
     """Batched Adam pose optimization with per-object clip and freeze gates."""
@@ -322,3 +309,24 @@ def pad_batch_to(batch: ObjectBatch, params: PoseParams, multiple: int
         object_valid=pad0(batch.object_valid),
         bbox_lo=batch.bbox_lo, bbox_hi=batch.bbox_hi)
     return batch, PoseParams(*(pad0(x) for x in params)), b
+
+
+def find_best_initial_yaw(
+    verts: torch.Tensor,
+    target_points: torch.Tensor,
+    num_steps: int = 8,
+    verts_mask: Optional[torch.Tensor] = None,
+    points_mask: Optional[torch.Tensor] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Yaw grid search: score ``num_steps`` Y-rotations of the pivot-centred
+    vertices against the target cloud by symmetric chamfer and return the
+    best angle, the first among equal scores (reference:
+    find_best_initial_yaw, pose_matching_planar.py:185-334)."""
+    angles = (torch.arange(num_steps, dtype=torch.float32, device=verts.device)
+              * torch.tensor(2 * math.pi / num_steps, dtype=torch.float32))
+    cand = torch.einsum("vj,sjk->svk", verts, yaw_rotation(angles))
+    with torch.no_grad():
+        scores = torch.stack([chamfer_loss(c, target_points, verts_mask,
+                                           points_mask, chunk) for c in cand])
+    return angles[torch.argmin(scores)]

@@ -1,0 +1,233 @@
+"""Host-side image utilities of the port: PNG IO, mask ops, nearest resize,
+GIF (counterpart of the phase-5/6 subset of regen3d_tpu/utils/image.py).
+
+The GPU machine this port runs on has neither PIL nor OpenCV, so PNG files
+go through a small codec on ``zlib`` and ``struct``:
+
+* :func:`write_png` writes 8-bit L, RGB and RGBA, every row unfiltered;
+* :func:`read_png` reads 8-bit non-interlaced L, LA, RGB and RGBA with all
+  five row filters (PIL writes with adaptive filters) and raises on any
+  other layout.
+
+Reading converts as PIL's ``convert`` does (ITU-R 601-2 luma in PIL's
+fixed point for RGB → L), and :func:`resize_nearest` reproduces PIL's
+``Image.NEAREST`` index mapping, so masks come out bit for bit as the JAX
+package's. Erosion and dilation are the JAX module's numpy branches, which
+it takes where OpenCV is absent. :func:`save_gif` needs PIL and imports it
+inside itself.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import List, Tuple
+
+import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# PNG colour type → channels, for the 8-bit layouts the codec reads
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) → an 8-bit PNG."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, got {arr.dtype}")
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.ndim != 3 or arr.shape[2] not in _COLOR_TYPE:
+        raise ValueError(f"write_png: unsupported shape {arr.shape}")
+    h, w, c = arr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(arr).reshape(h, w * c)], 1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IEND", b""))
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
+    """Undo the per-row filters of 8-bit samples → (H, W, C) uint8.
+
+    Sub, Average and Paeth read the byte one pixel to the left, and Up,
+    Average and Paeth the byte above, so pixel (r, x) needs (r, x−1),
+    (r−1, x) and (r−1, x−1): the rows are decoded together along
+    anti-diagonals r + x = d, each filter evaluated and the row's own
+    selected."""
+    raw = raw.reshape(h, 1 + w * c)
+    ftype = raw[:, 0].astype(np.int64)
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"PNG row filter {int(ftype.max())} is not defined")
+    data = raw[:, 1:].reshape(h, w, c).astype(np.int64)
+    if not ftype.any():
+        return data.astype(np.uint8)
+    out = np.zeros((h + 1, w + 1, c), np.int64)    # row 0, column 0: zeros
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - r
+        a = out[r + 1, x]                           # left
+        b = out[r, x + 1]                           # above
+        cc = out[r, x]                              # above-left
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+        pred = np.choose(ftype[r][:, None],
+                         [np.zeros_like(a), a, b, (a + b) // 2, paeth])
+        out[r + 1, x + 1] = (data[r, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> Tuple[np.ndarray, str]:
+    """An 8-bit PNG → (uint8 (H, W, C), mode "L", "LA", "RGB" or "RGBA")."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, ihdr, idat = 8, None, []
+    while pos < len(buf):
+        (n,) = struct.unpack(">I", buf[pos:pos + 4])
+        tag, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", buf[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + data) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in chunk {tag!r}")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    if ihdr is None or not idat:
+        raise ValueError(f"{path}: no IHDR or IDAT chunk")
+    w, h, depth, ctype, comp, filt, interlace = ihdr
+    if depth != 8 or ctype not in _CHANNELS or comp or filt or interlace:
+        raise ValueError(
+            f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
+            f"interlace {interlace}); 8-bit non-interlaced L, LA, RGB and "
+            "RGBA are read")
+    c = _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * c):
+        raise ValueError(f"{path}: IDAT holds {raw.size} bytes, expected "
+                         f"{h * (1 + w * c)}")
+    mode = {0: "L", 2: "RGB", 4: "LA", 6: "RGBA"}[ctype]
+    return _unfilter(raw, h, w, c), mode
+
+
+def _to_l(img: np.ndarray, mode: str) -> np.ndarray:
+    """PIL's ``convert("L")``: luma R·299/1000 + G·587/1000 + B·114/1000 in
+    its 16-bit fixed point, rounded."""
+    if mode in ("L", "LA"):
+        return img[..., 0]
+    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _to_rgb(img: np.ndarray, mode: str) -> np.ndarray:
+    """PIL's ``convert("RGB")``: grey replicated, alpha dropped."""
+    if mode in ("L", "LA"):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3]
+
+
+def save_image(path: str, arr: np.ndarray) -> None:
+    """Array → PNG, converted to uint8 as the JAX package does (floats in
+    [0, 1] scaled by 255, then clipped)."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"save_image writes PNG only, not {path}")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr * 255.0 if arr.max() <= 1.0 + 1e-6 else arr,
+                      0, 255).astype(np.uint8)
+    write_png(path, arr)
+
+
+def load_mask(path: str) -> np.ndarray:
+    """Grayscale mask PNG → bool (H, W)."""
+    return _to_l(*read_png(path)) > 127
+
+
+def mask_from_finding(path: str, white_thr: int = 250) -> np.ndarray:
+    """Binary mask from a white-background finding PNG: non-white pixels
+    (reference: extract_pc_object.py:66-126)."""
+    rgb = _to_rgb(*read_png(path))
+    return ~np.all(rgb >= white_thr, axis=-1)
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """PIL's NEAREST source index per output position: the position starts
+    at half a step and adds the step (n_in / n_out, double) once per pixel,
+    then truncates."""
+    step = n_in / n_out
+    pos = np.full(n_out, step)
+    pos[0] = step * 0.5
+    return np.add.accumulate(pos).astype(np.int64)
+
+
+def resize_nearest(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """``Image.fromarray(arr).resize((w, h), Image.NEAREST)`` without PIL."""
+    h, w = hw
+    return arr[_nearest_index(arr.shape[0], h)][:, _nearest_index(arr.shape[1], w)]
+
+
+def erode_mask(mask: np.ndarray, pixels: int = 4, iterations: int = 4) -> np.ndarray:
+    """Erode ``pixels·iterations`` times by the 4-neighbour cross, the image
+    border eroding (the JAX module's branch without OpenCV;
+    mask_shrink_pixels/iterations, config.yaml:265-267)."""
+    out = mask.copy()
+    for _ in range(iterations * pixels):
+        inner = out[1:-1, 1:-1]
+        inner &= out[:-2, 1:-1] & out[2:, 1:-1] & out[1:-1, :-2] & out[1:-1, 2:]
+        shr = np.zeros_like(out)
+        shr[1:-1, 1:-1] = inner
+        out = shr
+    return out
+
+
+def dilate_mask(mask: np.ndarray, pixels: int = 3) -> np.ndarray:
+    """Dilate ``pixels`` times by the 4-neighbour cross (the JAX module's
+    branch without OpenCV)."""
+    out = mask.copy()
+    for _ in range(pixels):
+        grown = out.copy()
+        grown[1:, :] |= out[:-1, :]
+        grown[:-1, :] |= out[1:, :]
+        grown[:, 1:] |= out[:, :-1]
+        grown[:, :-1] |= out[:, 1:]
+        out = grown
+    return out
+
+
+def mask_bbox(mask: np.ndarray) -> Tuple[int, int, int, int]:
+    """(x0, y0, x1, y1) inclusive-exclusive bounds."""
+    ys, xs = np.nonzero(mask)
+    if len(xs) == 0:
+        return 0, 0, 0, 0
+    return int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1
+
+
+def save_gif(path: str, frames: List[np.ndarray], fps: int = 10) -> None:
+    """Optimization-preview GIF (reference: per-object GIFs,
+    pose_matching_planar.py:1687-1716). GIF encoding needs PIL."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    imgs = []
+    for f in frames:
+        if f.dtype != np.uint8:
+            f = np.clip(f * 255.0 if f.max() <= 1.0 + 1e-6 else f,
+                        0, 255).astype(np.uint8)
+        imgs.append(Image.fromarray(f))
+    if imgs:
+        imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                     duration=int(1000 / fps), loop=0)

@@ -39,6 +39,16 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.detection",
     "regen3d_tpu_torch.pipeline.phase1_segmentation",
     "regen3d_tpu_torch.models.dit", "regen3d_tpu_torch.parallel.train",
+    "regen3d_tpu_torch.config", "regen3d_tpu_torch.artifacts",
+    "regen3d_tpu_torch.utils.ply", "regen3d_tpu_torch.utils.glb",
+    "regen3d_tpu_torch.utils.meshproc", "regen3d_tpu_torch.utils.image",
+    "regen3d_tpu_torch.transforms.conventions",
+    "regen3d_tpu_torch.transforms.rigid", "regen3d_tpu_torch.ops.knn",
+    "regen3d_tpu_torch.ops.obb", "regen3d_tpu_torch.ops.plane",
+    "regen3d_tpu_torch.ops.filters",
+    "regen3d_tpu_torch.pipeline.phase5_extract",
+    "regen3d_tpu_torch.pipeline.phase6_pose",
+    "regen3d_tpu_torch.orchestrator", "regen3d_tpu_torch.__main__",
 ]
 
 
