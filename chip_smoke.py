@@ -41,17 +41,24 @@ Phases, each reported on one line:
    iteration's wall time, device time and launches from fits of 5 and 10
    iterations under torch.profiler, with the ten device operations with the
    most time;
-5. phases 5 and 6 through the port's orchestrator (run_phases(cfg, [5, 6])
-   with the defaults but write_fit_gifs off) on a synthetic room's output
-   bus built with the port's writers: 960×1280 findings of 8 objects (~20k
-   faces each, 5 on the floor) and the floor, one 518² VGGT frame, the
-   empty room; the fit at 1024 × 1344 on the silhouette kernels, which are
-   first held to their plain versions at that batch (with a 5-iteration
-   fit on the kernels against the plain edge path and a fit-GIF frame on
-   the card against the CPU); every artifact written, every loss finite
-   and below its initial value, each object's pose error against the truth
-   printed beside a fit without the silhouette term; then phases 5 and 6
-   on a small bus on the card against the CPU;
+5. phases 5, 6, 7 and 9 through the port's orchestrator
+   (run_phases(cfg, [5, 6, 7, 9]) with the defaults but write_fit_gifs
+   off) on a synthetic room's output bus built with the port's writers:
+   960×1280 findings of 8 objects (~20k faces each, 5 on the floor) and
+   the floor, one 518² VGGT frame, the empty room's cloud and image, the
+   input image, a 720×960 stand-in render and a GT scene; the fit at
+   1024 × 1344 on the silhouette kernels, which are first held to their
+   plain versions at that batch (with a 5-iteration fit on the kernels
+   against the plain edge path and a fit-GIF frame on the card against the
+   CPU); every artifact written, every loss finite and below its initial
+   value, each object's pose error against the truth printed beside a fit
+   without the silhouette term; phase 7 (60,000 samples, a 128³ Poisson
+   background baked from the empty room, ICP) and phase 9 (the 15 metrics)
+   gated on their artifacts and finite metrics, with their stage times,
+   ICP's ms per iteration (and its device time) and the bake's time and
+   memory; then phases 5 and 6, and 7 and 9, on a small bus on the card
+   against the CPU; then LPIPS (seeded init) timed at 960×1280, after a
+   small pair on the card against the CPU;
 6. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
    weights on the CPU (f32, plain versions), then detect_and_segment with
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
@@ -314,6 +321,12 @@ def phase_device(kernels, results):
         kernels.lib(name)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{sorted(built) or 'nothing (up to date)'}")
+    from regen3d_tpu_torch.ops import marching_cubes
+
+    t0 = time.perf_counter()
+    marching_cubes.load()
+    log(f"build: marching tetrahedra ({marching_cubes.lib_path().relative_to(ROOT)}, "
+        f"g++) in {time.perf_counter() - t0:.1f} s")
     ptx = results.setdefault("ptxas", {})
     for name, text in kernels.BUILD_LOG.items():
         fn = ""   # the kernel instance ptxas is reporting on
@@ -1150,7 +1163,10 @@ def phase_fit(results, iters_check=5, iters=100):
         raise AssertionError("plain fit did not take the plain edge path")
     r_k = fit_poses(init, batch, cam, short)
     r_p = fit_poses(init, batch, cam, plain)
+    r_k2 = fit_poses(init, batch, cam, short)     # the same fit again
     torch.cuda.synchronize()
+    fit_again = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
+                                                               r_k2.params))
     p_err = max(float((a - b).abs().max()) for a, b in zip(r_k.params, r_p.params))
     l_err = float(((r_k.losses - r_p.losses).abs() / r_p.losses.abs()).max())
     log(f"fit {iters_check} iters kernels vs plain: params max err "
@@ -1387,13 +1403,74 @@ def bus_cast(objs, h, w, dev):
     return best, ident
 
 
-def build_bus(root, dev, hw=BUS_HW, vggt=BUS_VGGT, grid=BUS_GRID):
-    """Write the synthetic room's phase-5/6 inputs under root/output with
-    the port's writers: camera.npz, the 960×1280 findings (8 objects and
-    the floor, on white, named by finding_stem), scene_vggt.ply (one
-    518² frame of front-most points with depth noise), points_emptyRoom.ply
-    (the floor and back wall, raw VGGT frame) and one asset GLB per object
-    (a submesh per box). Returns {stem: (label, submeshes, scale, yaw, t)}."""
+def _quad_mesh(origin, du, dv, n=8):
+    """A flat n×n grid of quads from ``origin`` along ``du`` and ``dv``."""
+    import numpy as np
+
+    a, b = np.meshgrid(np.linspace(0, 1, n + 1), np.linspace(0, 1, n + 1),
+                       indexing="ij")
+    v = (np.asarray(origin) + a.reshape(-1, 1) * np.asarray(du)
+         + b.reshape(-1, 1) * np.asarray(dv))
+    q = np.arange((n + 1) ** 2).reshape(n + 1, n + 1)
+    f = np.concatenate([np.stack([q[:-1, :-1], q[1:, :-1], q[1:, 1:]], -1),
+                        np.stack([q[:-1, :-1], q[1:, 1:], q[:-1, 1:]], -1)])
+    return v.astype(np.float32), f.reshape(-1, 3).astype(np.int32)
+
+
+def bus_images(objs, hw, dev, gen):
+    """(input image, empty room) as uint8 (h, w, 3) of the bus's view: each
+    pixel coloured by its front-most surface (objects, floor, back wall),
+    darkened with depth, with 2 levels of noise."""
+    import numpy as np
+
+    # bus_cast's ids: the objects 0..7, the floor 8, the back wall 9
+    palette = np.concatenate([gen.integers(30, 220, (8, 3)),
+                              [[125, 105, 85], [205, 198, 188]]])
+    out = []
+    for scene in (objs, []):
+        lam, ident = bus_cast(scene, hw[0], hw[1], dev)
+        ident = ident.cpu().numpy()
+        shade = np.clip(1.0 - 0.04 * lam.cpu().numpy(), 0.5, 1.0)[:, None]
+        img = palette[ident] * shade + gen.normal(0, 2, (ident.size, 3))
+        out.append(np.clip(img, 0, 255).astype(np.uint8).reshape(*hw, 3))
+    return out
+
+
+def bus_gt_scene(path, objs):
+    """The GT scene GLB: every object's asset submeshes at its true pose,
+    the floor and the back wall."""
+    import numpy as np
+
+    from regen3d_tpu_torch.utils.glb import MeshData, SceneData, save_glb
+
+    meshes = [MeshData(name=f"gt_{name}", vertices=(
+        (v * scale) @ _yaw_matrix(yaw) + t).astype(np.float32), faces=f)
+        for _label, subs, _boxes, scale, yaw, t in objs
+        for name, v, f in subs]
+    span = (9.0, 0.0, 0.0)
+    for name, (v, f) in (
+            ("floor", _quad_mesh((-4.5, BUS_FLOOR_Y, 1.0), span,
+                                 (0.0, 0.0, BUS_WALL_Z - 1.0))),
+            ("wall", _quad_mesh((-4.5, BUS_FLOOR_Y, BUS_WALL_Z), span,
+                                (0.0, 2.5 - BUS_FLOOR_Y, 0.0)))):
+        meshes.append(MeshData(name=name, vertices=v, faces=f))
+    save_glb(str(path), SceneData(meshes=meshes))
+
+
+def build_bus(root, dev, hw=BUS_HW, vggt=BUS_VGGT, grid=BUS_GRID,
+              room_points=20000, empty_hw=None):
+    """Write the synthetic room's inputs under root with the port's
+    writers: for phases 5 and 6 camera.npz, the 960×1280 findings (8
+    objects and the floor, on white, named by finding_stem), scene_vggt.ply
+    (one 518² frame of front-most points with depth noise),
+    points_emptyRoom.ply (``room_points`` on the floor and as many on the
+    back wall, raw VGGT frame) and one asset GLB per object (a submesh per
+    box); for phases 7 and 9 empty_room.png (at ``empty_hw``, by default
+    the findings' size), root/input.png (the view with
+    the objects), a stand-in render_cam1_white_bg.png at 3/4 of the input's
+    size (phase 9 resizes it with LANCZOS) and root/gt_scene.glb (the true
+    object meshes, the floor and the back wall). Returns {stem: (label,
+    submeshes, scale, yaw, t)}."""
     import os
 
     import numpy as np
@@ -1428,8 +1505,9 @@ def build_bus(root, dev, hw=BUS_HW, vggt=BUS_VGGT, grid=BUS_GRID):
     store[:, 1] *= -1
     save_ply(art.scene_cloud_ply, (store @ R).astype(np.float32))
     # the empty room in the raw VGGT frame: world = diag(2, −2, −2)·raw
-    fx, fz = gen.uniform(-4.5, 4.5, 20000), gen.uniform(1.0, BUS_WALL_Z, 20000)
-    wx, wy = gen.uniform(-4.5, 4.5, 20000), gen.uniform(BUS_FLOOR_Y, 2.5, 20000)
+    n = room_points
+    fx, fz = gen.uniform(-4.5, 4.5, n), gen.uniform(1.0, BUS_WALL_Z, n)
+    wx, wy = gen.uniform(-4.5, 4.5, n), gen.uniform(BUS_FLOOR_Y, 2.5, n)
     room = np.concatenate([
         np.stack([fx, np.full_like(fx, BUS_FLOOR_Y), fz], -1),
         np.stack([wx, wy, np.full_like(wx, BUS_WALL_Z)], -1)])
@@ -1454,6 +1532,14 @@ def build_bus(root, dev, hw=BUS_HW, vggt=BUS_VGGT, grid=BUS_GRID):
                 MeshData(name=name, vertices=v, faces=f)
                 for name, v, f in subs]))
             truth[stem] = (label, subs, scale, yaw, t)
+    image, empty = bus_images(objs, hw, dev, gen)
+    save_image(str(root / "input.png"), image)
+    if empty_hw is not None:
+        _, empty = bus_images(objs, empty_hw, dev, gen)
+    save_image(art.empty_room, empty)
+    render, _ = bus_images(objs, (hw[0] * 3 // 4, hw[1] * 3 // 4), dev, gen)
+    save_image(art.predicted_image, render)
+    bus_gt_scene(root / "gt_scene.glb", objs)
     return truth
 
 
@@ -1488,24 +1574,16 @@ def bus_pose_errors(glb_path, truth):
     return min(errs, key=lambda e: e[1])
 
 
-class _FitSpy:
-    """Stands in for phase6_pose.fit_poses and records each call's
-    (init, batch, camera, config, result); the fit itself is unchanged."""
-
-    def __init__(self, fit):
-        self.fit, self.calls = fit, []
-
-    def __call__(self, init, batch, cam, cfg):
-        res = self.fit(init, batch, cam, cfg)
-        self.calls.append((init, batch, cam, cfg, res))
-        return res
-
-
 class _StageLog:
-    """Context manager: the last "stage breakdown" record phase 6 logs,
-    as (floor/cam, prep, fit, export, gif/debug s, objects)."""
+    """Context manager: the last "stage breakdown" record a phase module
+    logs, its args: phase 6's (floor/cam, prep, fit, export, gif/debug s,
+    objects), phase 7's (intrinsics, combine, backproject, background,
+    align s)."""
 
-    NAME = "regen3d_tpu_torch.pipeline.phase6_pose"
+    def __init__(self, phase=6):
+        self.name = {6: "regen3d_tpu_torch.pipeline.phase6_pose",
+                     7: "regen3d_tpu_torch.pipeline.phase7_assemble"}[phase]
+        self.prefix = f"phase{phase}: stage breakdown"
 
     def __enter__(self):
         import logging
@@ -1515,10 +1593,10 @@ class _StageLog:
 
         class Handler(logging.Handler):
             def emit(self, record):
-                if str(record.msg).startswith("phase6: stage breakdown"):
+                if str(record.msg).startswith(outer.prefix):
                     outer.args = record.args
 
-        self.logger = logging.getLogger(self.NAME)
+        self.logger = logging.getLogger(self.name)
         self.level = self.logger.level
         self.handler = Handler()
         self.logger.addHandler(self.handler)
@@ -1530,23 +1608,51 @@ class _StageLog:
         self.logger.setLevel(self.level)
 
 
-def _bus_phases(cfg, spy):
-    """run_phases(cfg, [5, 6]) on the card with phase 6's fit recorded;
-    returns ({phase: s}, stage breakdown)."""
+class _CallSpy:
+    """Stands in for a function and records each call's wall seconds (the
+    device synchronized at both ends), peak device bytes, arguments and
+    result; the function itself is unchanged."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append(dict(s=time.perf_counter() - t0, args=args,
+                               kwargs=kwargs, out=out,
+                               peak=torch.cuda.max_memory_allocated()))
+        return out
+
+
+def _bus_phases(cfg, spy, phases=(5, 6), spies=None):
+    """run_phases(cfg, phases) on the card with phase 6's fit recorded by
+    ``spy`` and, for phases 7 and 9, ICP and the bake by ``spies`` (each a
+    _CallSpy); returns ({phase: s}, phase 6's stage breakdown, phase 7's)."""
     import torch
 
     from regen3d_tpu_torch import orchestrator
-    from regen3d_tpu_torch.pipeline import phase6_pose
+    from regen3d_tpu_torch.pipeline import phase6_pose, phase7_assemble, texture
 
-    saved = phase6_pose.fit_poses
+    saved = (phase6_pose.fit_poses, phase7_assemble.iterative_closest_point,
+             texture.bake_vertex_colors)
     phase6_pose.fit_poses = spy
+    if spies is not None:
+        (phase7_assemble.iterative_closest_point,
+         texture.bake_vertex_colors) = spies
     try:
-        with _StageLog() as stages:
-            timings = orchestrator.run_phases(cfg, [5, 6], device="cuda")
+        with _StageLog(6) as stages6, _StageLog(7) as stages7:
+            timings = orchestrator.run_phases(cfg, list(phases), device="cuda")
             torch.cuda.synchronize()
     finally:
-        phase6_pose.fit_poses = saved
-    return timings, stages.args
+        (phase6_pose.fit_poses, phase7_assemble.iterative_closest_point,
+         texture.bake_vertex_colors) = saved
+    return timings, stages6.args, stages7.args
 
 
 def bus_frame_check(batch, fit_cfg, cam, flat, n_obj=4):
@@ -1604,7 +1710,8 @@ def bus_small_check():
     Returns (largest share of cloud points found on one device only, least
     |cos| between two normals of one point, share of points whose normals
     agree within 1e-5, largest fitted-vertex difference over its
-    tolerance). Points project through the camera in another rounding
+    tolerance, largest fitted-vertex difference between two card runs of
+    phase 6 on the same phase-5 outputs). Points project through the camera in another rounding
     (cuBLAS fuses the products), and neighbours whose distances tie within
     rounding rank either way: the clouds may differ by a few points and a
     normal where its neighbourhood does. The fits may differ by one Adam
@@ -1622,7 +1729,8 @@ def bus_small_check():
 
     root = ROOT / "build" / "bus_small"
     shutil.rmtree(root, ignore_errors=True)
-    truth = build_bus(root / "bus", "cpu", hw=(240, 320), vggt=160, grid=6)
+    truth = build_bus(root / "bus", "cpu", hw=(240, 320), vggt=160, grid=6,
+                      room_points=4000, empty_hw=(120, 160))
     over = dict(write_fit_gifs=False, image_size_DR=96, fit_max_faces=128,
                 fit_max_points=512, max_iterations=5,
                 early_stop_min_iterations=5, mask_shrink_pixels=1,
@@ -1653,8 +1761,15 @@ def bus_small_check():
         cos = np.abs((ng * nc).sum(-1))
         cos_min = min(cos_min, float(cos.min()))
         agree = min(agree, float((np.abs(ng - nc).max(-1) <= 1e-5).mean()))
-    for d in devs:
-        phase6_pose.run(cfgs[d], device=d, ransac_idx=idx.to(d))
+    # phase 6 a second time on the card from the same phase-5 outputs
+    shutil.copytree(root / "cuda", root / "cuda2")
+    cfgs["cuda2"] = default_config(str(root / "cuda2" / "output"), **over)
+    for d, dev in (("cuda", "cuda"), ("cpu", "cpu"), ("cuda2", "cuda")):
+        phase6_pose.run(cfgs[d], device=dev, ransac_idx=idx.to(dev))
+    again = max(float(np.abs(
+        _glb_vertices(root / "cuda" / "output" / "glb" / f"{stem}.glb")
+        - _glb_vertices(root / "cuda2" / "output" / "glb" / f"{stem}.glb")
+    ).max()) for stem in truth)
     for stem in truth:
         vg, vc = (_glb_vertices(root / d / "output" / "glb" / f"{stem}.glb")
                   for d in devs)
@@ -1666,12 +1781,344 @@ def bus_small_check():
             f"small bus, card vs CPU: {only:.3%} of a cloud on one device "
             f"only (tol 0.5%), {agree:.3%} of normals within 1e-5 (tol "
             f"98%), fitted vertices at {worst:.2f} of one Adam step")
-    return only, cos_min, agree, worst
+    return (only, cos_min, agree, worst, again), bus79_small(root)
+
+
+def icp_grid_check(n_side=16, iters=30):
+    """ICP on the card against the CPU on clouds whose nearest neighbours
+    are unambiguous (tests/test_torch_eval_ops.py's construction at n_side³
+    points: a jittered grid of spacing 0.1 and the same points turned 3°,
+    scaled 1.02 and moved 0.01, with 1 mm of noise, so each point's partner
+    is 10× closer than any other point), ``iters`` iterations with and
+    without scale: R, t, s and the aligned cloud within 1e-5. Returns the
+    largest difference."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.ops.icp import iterative_closest_point
+
+    gen = np.random.default_rng(0)
+    n = n_side ** 3
+    g = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"), -1)
+    src = (g.reshape(-1, 3) * 0.1 + gen.uniform(-0.01, 0.01, (n, 3)))
+    a = np.radians(3.0)
+    rot = np.asarray([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+    dst = (src @ rot * 1.02 + [0.01, -0.005, 0.008]
+           + gen.normal(size=src.shape) * 1e-3)
+    worst = 0.0
+    for scale in (False, True):
+        res = {d: iterative_closest_point(
+            torch.tensor(src, dtype=torch.float32, device=d),
+            torch.tensor(dst, dtype=torch.float32, device=d),
+            max_iterations=iters, estimate_scale=scale,
+            relative_rmse_thr=-1.0) for d in ("cuda", "cpu")}
+        for f in ("R", "t", "s", "aligned"):
+            worst = max(worst, float((getattr(res["cuda"], f).cpu()
+                                      - getattr(res["cpu"], f)).abs().max()))
+    if worst > 1e-5:
+        raise AssertionError(f"ICP on the card vs the CPU, unambiguous "
+                             f"neighbours: {worst:.2e} (tol 1e-5)")
+    return worst
+
+
+def bus79_small(root):
+    """Phases 7 and 9 on the small bus's CPU phase-6 outputs, once on the
+    card and once on the CPU (4,096 samples, a 32³ Poisson grid baked from
+    a 120×160 empty room, 30 ICP iterations), both sampling from the same
+    CPU draws. Phase 7: the combined GLB and the backprojected PLY
+    identical; ground_aligned.glb within a Chamfer distance of 1e-3 of a
+    Poisson cell, 95% of its vertices within 1e-4 of a cell of the CPU's
+    with colours within 1e-4; the GT points within 1e-5; the ICP-aligned
+    prediction and the ICP transform within 1e-4: the card's cuBLAS rounds
+    the distance expansion otherwise than the CPU, so correspondences at
+    near-ties go either way (ROADMAP Queue 3 u), which icp_grid_check
+    excludes to hold ICP itself to 1e-5. Phase 9 on both reads the CPU's
+    background mesh and pred/GT points: its ten cloud metrics and PSNR
+    within 1e-5 relative, SSIM 1e-4 (Queue 3 x). The three
+    scene-incl-background metrics sample and run ICP again, so they take
+    the aligned prediction's bound: a mean or RMS nearest-neighbour
+    distance moves by at most the largest point displacement, so the
+    Chamfer distance and the RMSE within 1e-4 absolute, and the F-score
+    within 1e-3 relative (a point of 4,096 crossing τ moves it by 2.4e-4).
+    A faulty ICP on the CPU (icp_fault_readings) must move the aligned
+    prediction, the transform, the scene Chamfer distance and the RMSE past
+    their limits when it stops after one step or transposes its rotation;
+    its F-score reading and that of a dropped last step are printed only.
+    Returns its worst numbers and the fault readings."""
+    import shutil
+
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from regen3d_tpu_torch import orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.transforms.conventions import vggt_raw_to_world
+    from regen3d_tpu_torch.utils.glb import load_glb
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    devs = ("cuda", "cpu")
+    cfg, art = {}, {}
+    for d in devs:
+        r = root / f"{d}79"
+        shutil.copytree(root / "cpu", r)
+        cfg[d] = default_config(str(r / "output"), write_fit_gifs=False,
+                                num_samples=4096,
+                                background_poisson_resolution=32,
+                                icp_max_iterations=30,
+                                GT_scene=str(r / "gt_scene.glb"),
+                                input_image=str(r / "input.png"))
+        art[d] = Artifacts(cfg[d])
+        orchestrator.run_phases(cfg[d], [7], device=d)
+    card = root / "cuda79" / "card"
+    card.mkdir()
+    for name in ("ground_aligned_glb", "pred_points_ply", "gt_points_ply"):
+        shutil.copyfile(getattr(art["cuda"], name),
+                        card / Path(getattr(art["cuda"], name)).name)
+        shutil.copyfile(getattr(art["cpu"], name), getattr(art["cuda"], name))
+    for d in devs:
+        orchestrator.run_phases(cfg[d], [9], device=d)
+
+    bad = []
+    for name in ("combined_scene_glb", "combined_scene_bp_ply"):
+        a, b = (Path(getattr(art[d], name)).read_bytes() for d in devs)
+        if a != b:
+            bad.append(f"{name} differs")
+    (mg,) = load_glb(str(card / "ground_aligned.glb")).meshes
+    (mc,) = load_glb(art["cpu"].ground_aligned_glb).meshes
+    pts = vggt_raw_to_world(load_ply(art["cpu"].points_empty_ply).vertices,
+                            float(cfg["cpu"]["vggt_scene_scale"]))
+    cell = float(np.ptp(pts, 0).max()) * 1.2 / 31    # the Poisson cell
+    d_gc, i_gc = cKDTree(mc.vertices).query(mg.vertices)
+    d_cg, _ = cKDTree(mg.vertices).query(mc.vertices)
+    chamfer = 0.5 * (d_gc.mean() + d_cg.mean()) / cell
+    near = d_gc <= 1e-4 * cell
+    colour = (float(np.abs(mg.vertex_colors[near]
+                           - mc.vertex_colors[i_gc[near]]).max())
+              if mg.vertex_colors is not None and near.any() else np.inf)
+    if not (chamfer <= 1e-3 and near.mean() >= 0.95 and colour <= 1e-4):
+        bad.append(f"background: Chamfer {chamfer:.2e} of a cell, "
+                   f"{near.mean():.2%} matched, colour {colour:.2e}")
+    gt_err, pred_err = (float(np.abs(
+        load_ply(str(card / Path(getattr(art["cpu"], name)).name)).vertices
+        - load_ply(getattr(art["cpu"], name)).vertices).max())
+        for name in ("gt_points_ply", "pred_points_ply"))
+    xg, xc = (np.load(Path(art[d].pred_points_ply).parent
+                      / "icp_transform.npz") for d in devs)
+    icp_err = max(float(np.abs(xg[k] - xc[k]).max()) for k in xc.files)
+    if not (gt_err <= 1e-5 and pred_err <= 1e-4 and icp_err <= 1e-4):
+        bad.append(f"GT points {gt_err:.2e} (tol 1e-5), aligned prediction "
+                   f"{pred_err:.2e}, ICP transform {icp_err:.2e} (tol 1e-4)")
+    grid_err = icp_grid_check()
+    mg9, mc9 = (json.loads(next(Path(art[d].eval_dir).glob(
+        "*/metrics.json")).read_text()) for d in devs)
+    absolute = ("scene_chamfer_incl_bg", "scene_icp_rmse_incl_bg")
+    rel = {k: abs(mg9[k] - mc9[k]) / (1.0 if k in absolute
+                                      else max(abs(mc9[k]), 1e-9))
+           for k in mc9}
+    tol = {k: 1e-4 if k in absolute or k == "ssim"
+           else 1e-3 if k == "scene_fscore_incl_bg" else 1e-5 for k in mc9}
+    over = {k: f"{rel[k]:.2e}" for k in mc9 if rel[k] > tol[k]}
+    if sorted(mg9) != sorted(mc9) or over:
+        bad.append(f"metrics: keys {sorted(mg9) == sorted(mc9)}, over their "
+                   f"tolerance {over}")
+    faults = icp_fault_readings(cfg["cpu"])
+    limits = dict(pred=1e-4, icp=1e-4, chamfer=1e-4, rmse=1e-4)
+    for k, lim in limits.items():
+        least = min(faults[f][k] for f in ("one step", "R transposed"))
+        if not least > lim:
+            bad.append(f"a faulty ICP moves {k} by {least:.2e}, within its "
+                       f"limit {lim:.0e}")
+    if bad:
+        raise AssertionError("small bus phases 7 and 9, card vs CPU: "
+                             + "; ".join(bad))
+    return dict(chamfer=chamfer, colour=colour, gt=gt_err, pred=pred_err,
+                icp=icp_err, icp_grid=grid_err, metrics=rel, faults=faults)
+
+
+def icp_fault_readings(cfg):
+    """How far a faulty ICP moves what bus79_small holds to its limits, on
+    the CPU from ``cfg``'s sound phase-7 outputs (the small bus's): ICP
+    stopped after its first step, its rotation transposed at every step (a
+    row/column mix-up), and its last step dropped. For each fault, as
+    bus79_small measures card against CPU: the aligned prediction's and the
+    ICP transform's largest difference from the sound run's, the scene
+    Chamfer distance's and RMSE's absolute and the scene F-score's relative
+    difference. Overwrites the phase-7 outputs; returns {fault: {reading:
+    value}}."""
+    import numpy as np
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.ops import icp
+    from regen3d_tpu_torch.pipeline import phase7_assemble
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    art = Artifacts(cfg)
+    xfile = Path(art.pred_points_ply).parent / "icp_transform.npz"
+    pred0 = load_ply(art.pred_points_ply).vertices
+    x0 = dict(np.load(xfile))
+    m0 = phase7_assemble.scene_vs_gt_metrics(cfg, device="cpu")
+    real, real_umeyama = phase7_assemble.iterative_closest_point, icp.umeyama
+
+    def transposed(*args, **kwargs):
+        R, t, s = real_umeyama(*args, **kwargs)
+        return R.T, t, s
+
+    def steps(k):
+        def run(src, dst, **kwargs):
+            n = k if k > 0 else real(src, dst, **kwargs).num_iters + k
+            return real(src, dst, **{**kwargs, "max_iterations": n})
+        return run
+
+    faults = {"one step": (steps(1), real_umeyama),
+              "R transposed": (real, transposed),
+              "last step dropped": (steps(-1), real_umeyama)}
+    out = {}
+    for name, (fn, um) in faults.items():
+        phase7_assemble.iterative_closest_point, icp.umeyama = fn, um
+        try:
+            phase7_assemble.align_and_export(cfg, device="cpu")
+            m = phase7_assemble.scene_vs_gt_metrics(cfg, device="cpu")
+        finally:
+            phase7_assemble.iterative_closest_point = real
+            icp.umeyama = real_umeyama
+        x = np.load(xfile)
+        out[name] = dict(
+            pred=float(np.abs(load_ply(art.pred_points_ply).vertices
+                              - pred0).max()),
+            icp=max(float(np.abs(x[k] - x0[k]).max()) for k in x0),
+            chamfer=abs(m["scene_chamfer_incl_bg"]
+                        - m0["scene_chamfer_incl_bg"]),
+            rmse=abs(m["scene_icp_rmse_incl_bg"]
+                     - m0["scene_icp_rmse_incl_bg"]),
+            fscore=abs(m["scene_fscore_incl_bg"] - m0["scene_fscore_incl_bg"])
+            / max(abs(m0["scene_fscore_incl_bg"]), 1e-9))
+    return out
+
+
+EVAL_KEYS = {"chamfer_p3d", "chamfer_pcu", "hausdorff", "fscore",
+             "precision_tau", "recall_tau", "precision_001", "recall_001",
+             "volume_iou_bbox", "wasserstein", "scene_chamfer_incl_bg",
+             "scene_fscore_incl_bg", "scene_icp_rmse_incl_bg", "psnr", "ssim"}
+
+
+def bus79_main(main, spies, stages7, timings):
+    """Phases 7 and 9 of the counted bus run (``main`` its root; ``spies``
+    the ICP and bake _CallSpy): prints one line and returns the gates that
+    failed. Beside the run: two Poisson solves of the room's points are
+    bit for bit the same (the splat is deterministic), a 20-iteration
+    ICP at the run's clouds is split into wall and device time, and the
+    alignment's ICP runs again at its own inputs (printed: whether it
+    repeats bit for bit). ICP's
+    initial alignment is the one it starts from (centroids matched, scale
+    1); its RMSE there is the nearest-neighbour RMSE of the shifted
+    prediction."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.ops import full_f32
+    from regen3d_tpu_torch.ops.icp import iterative_closest_point
+    from regen3d_tpu_torch.ops.knn import nn_distances
+    from regen3d_tpu_torch.ops.poisson import poisson_indicator
+    from regen3d_tpu_torch.transforms.conventions import vggt_raw_to_world
+    from regen3d_tpu_torch.utils.glb import load_glb
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    art = Artifacts(default_config(str(main / "output")))
+    icp, bake = spies
+    bad = []
+    exists = lambda p: Path(p).exists()
+    combined = (load_glb(art.combined_scene_glb).meshes
+                if exists(art.combined_scene_glb) else [])
+    objects = {m.name.split("/")[0] for m in combined}
+    if len(objects) != 8 or not exists(art.combined_scene_bp_ply):
+        bad.append(f"{len(objects)} objects in combined_scene.glb, "
+                   f"combined_scene_bp.ply there: "
+                   f"{exists(art.combined_scene_bp_ply)}")
+    bg = (load_glb(art.ground_aligned_glb).meshes[0]
+          if exists(art.ground_aligned_glb) else None)
+    if (bg is None or len(bg.faces) == 0 or bg.vertex_colors is None
+            or len(bake.calls) != 1):
+        bad.append("ground_aligned.glb missing, empty or not baked")
+    rows = [len(load_ply(p).vertices) if exists(p) else 0
+            for p in (art.pred_points_ply, art.gt_points_ply)]
+    transform = Path(art.pred_points_ply).parent / "icp_transform.npz"
+    if rows != [60000, 60000] or not transform.exists():
+        bad.append(f"pred/gt points {rows}, icp_transform.npz there: "
+                   f"{transform.exists()}")
+    if len(icp.calls) != 2:
+        bad.append(f"{len(icp.calls)} ICP calls, 2 wanted")
+        return bad
+    src, dst = icp.calls[0]["args"][:2]
+    with torch.no_grad(), full_f32():
+        d0, _ = nn_distances(src - src.mean(0) + dst.mean(0), dst)
+    rmse0 = float(d0.mean().sqrt())
+    rmse = float(icp.calls[0]["out"].rmse)
+    if not (np.isfinite(rmse) and rmse <= rmse0):
+        bad.append(f"ICP rmse {rmse:.5f} against {rmse0:.5f} initially")
+    found = sorted(Path(art.eval_dir).glob("*/metrics.json"))
+    metrics = json.loads(found[-1].read_text()) if found else {}
+    if set(metrics) != EVAL_KEYS or not all(np.isfinite(v)
+                                            for v in metrics.values()):
+        bad.append(f"metrics.json keys {sorted(metrics)}")
+
+    # the Poisson splat sorts instead of adding atomically: two solves on
+    # the room's points (random unit normals) are bit for bit the same
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    room = torch.as_tensor(vggt_raw_to_world(
+        load_ply(art.points_empty_ply).vertices, 2.0), dtype=torch.float32,
+        device="cuda")
+    nrm = torch.randn(room.shape, generator=gen, device="cuda")
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    chi = [poisson_indicator(room, nrm, 128)[0] for _ in range(2)]
+    if not torch.equal(chi[0], chi[1]):
+        bad.append("two Poisson solves differ")
+
+    # 20 iterations at the same clouds: wall time against device time
+    run20 = lambda: iterative_closest_point(src, dst, max_iterations=20,
+                                            relative_rmse_thr=-1.0)
+    run20()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run20()
+    torch.cuda.synchronize()
+    wall20 = 1e3 * (time.perf_counter() - t0) / 20
+    dev20 = device_top(run20, 0)[0] / 20
+    # the alignment's ICP again at its own inputs and knobs
+    first = icp.calls[0]["out"]
+    again = iterative_closest_point(*icp.calls[0]["args"],
+                                    **icp.calls[0]["kwargs"])
+    stable = again.num_iters == first.num_iters and all(
+        torch.equal(getattr(again, f), getattr(first, f))
+        for f in ("R", "t", "s", "rmse", "aligned"))
+    i_s, c_s, b_s, bg_s, a_s = stages7 or (float("nan"),) * 5
+    per = "; ".join(
+        f"{what} {c['out'].num_iters} iterations in {c['s']:.3f} s, "
+        f"{1e3 * c['s'] / max(c['out'].num_iters, 1):.2f} ms an iteration, "
+        f"rmse {float(c['out'].rmse):.5f}"
+        for what, c in zip(("align", "scene incl. background"), icp.calls))
+    b = bake.calls[0] if bake.calls else dict(s=float("nan"), peak=0)
+    log(f"bus phases 7 and 9 (60,000 samples, Poisson 128³, ICP ≤ 200 "
+        f"iterations): phase 7 {timings[7]:.2f} s (intrinsics {i_s:.3f}, "
+        f"combine {c_s:.3f}, backproject {b_s:.3f}, background {bg_s:.3f}, "
+        f"align {a_s:.3f} s), phase 9 {timings[9]:.2f} s; ICP: {per}; "
+        f"initial rmse {rmse0:.5f}; the alignment's ICP again: "
+        f"{again.num_iters} iterations, bit for bit the same: {stable}; "
+        f"20 ICP iterations at {src.shape[0]} × "
+        f"{dst.shape[0]} points: {wall20:.2f} ms wall, {dev20:.2f} ms device "
+        f"an iteration; background mesh {len(bg.vertices) if bg else 0} "
+        f"vertices, {len(bg.faces) if bg else 0} faces, its bake "
+        f"{b['s']:.3f} s at peak {b['peak'] / 2**30:.2f} GiB; metrics "
+        + ", ".join(f"{k} {metrics[k]:.5g}" for k in sorted(metrics)))
+    return bad
 
 
 def phase_bus(results):
-    """Phases 5 and 6 through the port's orchestrator on a synthetic room's
-    output bus at phase 6's real size (960×1280 findings → 1024 × 1344
+    """Phases 5, 6, 7 and 9 through the port's orchestrator on a synthetic
+    room's output bus at phase 6's real size (960×1280 findings → 1024 × 1344
     renders, 8 objects of ~20k faces decimated to 2,048, 4,096 target
     points, 300 iterations). First a run with 0 iterations gives the fit's
     batch, initial poses and initial losses; at that batch the silhouette
@@ -1683,7 +2130,20 @@ def phase_bus(results):
     initial and fitted, and those of a fit without the silhouette term
     (silhoutte_loss 0), which are reported, not gated: phase 6's default
     objective does not reduce them for every object (PERF.md §6).
-    Last, phases 5 and 6 on a small bus on the card against the CPU
+    The counted run goes on through phases 7 and 9 (run_phases(cfg, [5, 6,
+    7, 9])) with the GT scene and the images build_bus writes: phase 7's
+    stage times, ICP's iterations and ms per iteration, the bake's time and
+    peak memory, the background mesh's size and phase 9's metrics are
+    printed; the run must write every artifact (8 objects combined, the
+    background baked, 60,000 pred and GT points, the ICP transform), end ICP
+    no worse than its initial alignment and give the 15 metrics, all
+    finite; the silhouette kernels launch 301 and 300 times. Beside it one
+    20-iteration ICP at the same clouds under torch.profiler (its device
+    time against its wall time: the host's read of the stopping test each
+    iteration). Printed, to place run-to-run variation: the 5-iteration
+    fit run twice, phase 5's outputs of the 0-iteration and the counted
+    run (same inputs) compared byte for byte. Last, phases 5 and 6 and then
+    7 and 9 on a small bus on the card against the CPU
     (bus_small_check)."""
     import dataclasses
     import shutil
@@ -1693,7 +2153,7 @@ def phase_bus(results):
     from regen3d_tpu_torch import kernels
     from regen3d_tpu_torch.config import default_config
     from regen3d_tpu_torch.ops import silhouette_kernel as sk
-    from regen3d_tpu_torch.pipeline import phase6_pose
+    from regen3d_tpu_torch.pipeline import phase6_pose, phase7_assemble, texture
     from regen3d_tpu_torch.pipeline.pose_fit import (
         compute_batch_bins,
         fit_poses,
@@ -1715,11 +2175,12 @@ def phase_bus(results):
                 for s, t in truth.items()}
 
     # the fit's batch, initial poses and losses: 0 iterations
-    spy = _FitSpy(phase6_pose.fit_poses)
+    spy = _CallSpy(phase6_pose.fit_poses)
     _bus_phases(default_config(str(root / "init" / "output"),
                                write_fit_gifs=False, max_iterations=0,
                                early_stop_min_iterations=0), spy)
-    init, batch, cam, cfg, res0 = spy.calls[-1]
+    (init, batch, cam, cfg), res0 = (spy.calls[-1]["args"],
+                                     spy.calls[-1]["out"])
     n_faces = batch.faces.shape[1]
     path = raster_path(cfg, n_faces, "cuda")
     if cfg.image_hw != (1024, 1344) or path != "edge_kernel":
@@ -1745,7 +2206,10 @@ def phase_bus(results):
     plain = dataclasses.replace(short, use_pallas_raster=False)
     r_k = fit_poses(init, batch, cam, short)
     r_p = fit_poses(init, batch, cam, plain)
+    r_k2 = fit_poses(init, batch, cam, short)     # the same fit again
     torch.cuda.synchronize()
+    fit_again = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
+                                                               r_k2.params))
     p_err = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
                                                            r_p.params))
     l_err = float(((r_k.losses - r_p.losses).abs() / r_p.losses.abs()).max())
@@ -1757,15 +2221,20 @@ def phase_bus(results):
                       init.log_scale[:, None]], -1)
     f_err, f_other, f_cov = bus_frame_check(batch, cfg, cam, flat)
 
-    # the counted run: phases 5 and 6 with the defaults
-    spy = _FitSpy(phase6_pose.fit_poses)
+    # the counted run: phases 5, 6, 7 and 9 with the defaults
+    spy = _CallSpy(phase6_pose.fit_poses)
+    spies = (_CallSpy(phase7_assemble.iterative_closest_point),
+             _CallSpy(texture.bake_vertex_colors))
+    main = root / "main"
     kernels.reset_counts()
     torch.cuda.synchronize()
-    timings, stages = _bus_phases(default_config(
-        str(root / "main" / "output"), write_fit_gifs=False), spy)
+    timings, stages, stages7 = _bus_phases(default_config(
+        str(main / "output"), write_fit_gifs=False,
+        GT_scene=str(main / "gt_scene.glb"),
+        input_image=str(main / "input.png")), spy, (5, 6, 7, 9), spies)
     counts = dict(kernels.LAUNCHES)
-    res = spy.calls[-1][-1]
-    floor = int(spy.calls[-1][1].on_floor.sum())
+    res = spy.calls[-1]["out"]
+    floor = int(spy.calls[-1]["args"][1].on_floor.sum())
     out = root / "main" / "output"
     missing = [p for s in truth for p in (
         out / "glb" / f"{s}.glb", out / "pointclouds" / f"{s}.ply",
@@ -1775,12 +2244,19 @@ def phase_bus(results):
         for n in ("FLOOR.ply", "FLOOR_RESIDUALS.ply", "PLANE_SAMPLED.ply")]
     missing = [str(p) for p in missing if not p.exists()]
     after = errors("main")
+    # phase 5 ran on the same bus for the 0-iteration run and this one
+    p5_same = all(
+        (root / "init" / "output" / "pointclouds" / sub / n).read_bytes()
+        == (out / "pointclouds" / sub / n).read_bytes()
+        for s in truth for sub, n in (("", f"{s}.ply"),
+                                      ("normals", f"{s}_normals.ply")))
     # the same fit without the silhouette term, for comparison
-    nosil = _FitSpy(phase6_pose.fit_poses)
+    nosil = _CallSpy(phase6_pose.fit_poses)
     _bus_phases(default_config(str(root / "no_sil" / "output"),
                                write_fit_gifs=False, silhoutte_loss=0.0), nosil)
     third = errors("no_sil")
-    small = bus_small_check()
+    p79 = bus79_main(main, spies, stages7, timings)
+    small, small79 = bus_small_check()
 
     t_floor, t_prep, t_fit, t_export, _t_gif, _b = stages
     ms_iter = 1e3 * t_fit / max(res.num_iters, 1)
@@ -1802,13 +2278,28 @@ def phase_bus(results):
         f"{t_export:.2f} s), {res.num_iters} iterations, {ms_iter:.1f} ms an "
         f"iteration; losses initial → fitted: {losses}; pose error "
         f"(translation, rotation) initial → fitted (without the silhouette "
-        f"term, {nosil.calls[-1][-1].num_iters} iterations): {errs}; "
+        f"term, {nosil.calls[-1]['out'].num_iters} iterations): {errs}; "
         f"5 iterations kernels vs plain: params {p_err:.3e}, losses "
-        f"{l_err:.3e}; fit frame card vs CPU: colour {f_err:.3e}, {f_other} "
+        f"{l_err:.3e}, the same 5 iterations again {fit_again:.2e} apart; "
+        f"phase 5's clouds and normals in two runs bit for bit the same: "
+        f"{p5_same}; fit frame card vs CPU: colour {f_err:.3e}, {f_other} "
         f"of {f_cov} covered pixels at z-ties; small bus card vs CPU: "
         f"{small[0]:.3%} of a cloud on one device only, normals |cos| ≥ "
         f"{small[1]:.6f}, {small[2]:.2%} within 1e-5, fitted vertices at "
-        f"{small[3]:.2f} of one Adam step; silhouette at "
+        f"{small[3]:.2f} of one Adam step, two card runs of phase 6 "
+        f"{small[4]:.2e} apart; phases 7 and 9 card vs CPU: "
+        f"background Chamfer {small79['chamfer']:.2e} of a cell, colour "
+        f"{small79['colour']:.2e}, GT points {small79['gt']:.2e}, aligned "
+        f"prediction {small79['pred']:.2e}, ICP transform "
+        f"{small79['icp']:.2e} (unambiguous neighbours "
+        f"{small79['icp_grid']:.2e}), metrics relative (the scene "
+        f"Chamfer distance and RMSE absolute) "
+        + ", ".join(f"{k} {v:.1e}" for k, v in sorted(small79['metrics']
+                                                      .items()))
+        + "; a faulty ICP on the CPU moves them by: "
+        + "; ".join(f"{f}: " + ", ".join(f"{k} {v:.2e}" for k, v in r.items())
+                    for f, r in small79["faults"].items())
+        + "; silhouette at "
         f"{cfg.image_hw[0]}×{cfg.image_hw[1]}: fwd {t['fk']:.4f} ms (bound "
         f"{sil['bound']['fwd'][0]:.4f}, {sil['bound']['fwd'][1]}; plain "
         f"{t['fp']:.3f}), bwd {t['bk']:.4f} ms (bound "
@@ -1816,15 +2307,56 @@ def phase_bus(results):
         f"{t['bp']:.3f}); launches {counts}; {smi}")
     if missing:
         raise AssertionError(f"bus: missing artifacts {missing}")
-    if counts["silhouette_fwd"] == 0 or counts["silhouette_bwd"] == 0:
-        raise AssertionError("the bus run did not launch the silhouette "
-                             "kernels")
+    if counts["silhouette_fwd"] != 301 or counts["silhouette_bwd"] != 300:
+        raise AssertionError(f"the bus run launched the silhouette kernels "
+                             f"{counts['silhouette_fwd']} and "
+                             f"{counts['silhouette_bwd']} times, not 301 and "
+                             f"300")
+    if p79:
+        raise AssertionError("bus phases 7 and 9: " + "; ".join(p79))
     if not (bool(torch.isfinite(res.losses).all())
             and bool((res.losses < res0.losses).all())):
         raise AssertionError("bus: a fit loss is not finite or did not fall")
     if floor < 3:
         raise AssertionError(f"bus: {floor} objects on the floor, 3 wanted")
     results["bus_launches"] = counts
+
+
+def phase_lpips(results):
+    """LPIPS, the port's AlexNet trunk and five heads at the flax-style init
+    from a seed: a small pair (2 × 64 × 80) on the card against the CPU
+    within 1e-4 relative, then one 960×1280 pair (phase 9's input size) on
+    the card: CUDA-event ms (median of 10 after warm-up) and peak memory."""
+    import torch
+
+    from regen3d_tpu_torch.models.lpips import LPIPS, init_flax_style_, make_lpips_fn
+
+    fns = {}
+    for d in ("cuda", "cpu"):
+        model = LPIPS(device=d)
+        init_flax_style_(model, torch.Generator().manual_seed(0))
+        fns[d] = make_lpips_fn(model)
+    gen = torch.Generator().manual_seed(1)
+    a = torch.rand((2, 64, 80, 3), generator=gen)
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen)).clamp(0, 1)
+    y_cpu = float(fns["cpu"](a, b))
+    y_card = float(fns["cuda"](a.cuda(), b.cuda()))
+    rel = abs(y_card - y_cpu) / abs(y_cpu)
+    big_a = torch.rand((960, 1280, 3), generator=gen).cuda()
+    big_b = (big_a + 0.1 * torch.randn(big_a.shape, generator=gen).cuda()
+             ).clamp(0, 1)
+    torch.cuda.reset_peak_memory_stats()
+    y_big = float(fns["cuda"](big_a, big_b))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = cuda_ms(lambda: fns["cuda"](big_a, big_b))
+    log(f"lpips (seeded init): 960×1280 on the card {ms:.3f} ms, peak "
+        f"{peak:.2f} GiB, value {y_big:.5f}; small pair card {y_card:.7f} "
+        f"vs CPU {y_cpu:.7f}, {rel:.2e} relative (tol 1e-4)")
+    if not (rel <= 1e-4 and math.isfinite(y_big)):
+        raise AssertionError(f"lpips: card vs CPU {rel:.2e} (tol 1e-4), "
+                             f"960×1280 value {y_big}")
+    results["lpips_ms"] = ms
+
 
 def _scene_inputs(cfg, dev, k=8, seed=0):
     """bench.py's scene_step workload: 2 frames, 8 box masks, 512-vertex
@@ -2477,6 +3009,7 @@ def main() -> int:
     phase_scene(results)
     phase_fit(results)
     phase_bus(results)
+    phase_lpips(results)
     phase_sam(results)
     phase_dit(results)
     phase_sam_grad(results)

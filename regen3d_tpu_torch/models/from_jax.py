@@ -3,7 +3,9 @@ state dicts: ``regen3d_tpu.models.vggt.VGGT`` → :class:`~regen3d_tpu_torch.
 models.vggt.VGGT`, ``regen3d_tpu.models.sam.SAM`` →
 :class:`~regen3d_tpu_torch.models.sam.SAM` and
 ``regen3d_tpu.models.dit.ShapeDiT`` →
-:class:`~regen3d_tpu_torch.models.dit.ShapeDiT`.
+:class:`~regen3d_tpu_torch.models.dit.ShapeDiT` and
+``regen3d_tpu.models.lpips.LPIPS`` →
+:class:`~regen3d_tpu_torch.models.lpips.LPIPS`.
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
@@ -96,4 +98,10 @@ def load_sam_from_jax(model: torch.nn.Module, params: Mapping) -> None:
 def load_dit_from_jax(model: torch.nn.Module, params: Mapping) -> None:
     """As :func:`load_vggt_from_jax`, for the shape DiT (the f32 leaves load
     into its f32 parameters)."""
+    model.load_state_dict(state_from_jax(params), strict=True)
+
+
+def load_lpips_from_jax(model: torch.nn.Module, params: Mapping) -> None:
+    """As :func:`load_vggt_from_jax`, for LPIPS (its trunk and its five
+    1×1 heads are convolutions)."""
     model.load_state_dict(state_from_jax(params), strict=True)

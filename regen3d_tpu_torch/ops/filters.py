@@ -1,6 +1,6 @@
-"""Point-cloud filters and normal estimation for phase 5 (counterpart of
-regen3d_tpu/ops/filters.py; reference: pc_utils.py:79-153 and
-extract_pc_object.py:188-225).
+"""Point-cloud filters and normal estimation for phase 5 and PCA
+pre-alignment for phase 7 (counterpart of regen3d_tpu/ops/filters.py;
+reference: pc_utils.py:79-153 and extract_pc_object.py:188-225).
 
 Filters return boolean keep-masks; compaction happens at file export.
 DBSCAN is density-filtered connected components by min-label propagation
@@ -12,7 +12,7 @@ its eigenvector is whatever the solver returns.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -126,3 +126,34 @@ def estimate_normals(
         sign = torch.sign(((viewpoint - points) * normals).sum(-1, keepdim=True))
         normals = normals * torch.where(sign == 0, torch.ones_like(sign), sign)
     return normals
+
+
+def pca_align(src: torch.Tensor, dst: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotation+translation aligning src's principal axes to dst's
+    (reference: align_clouds_pca, scene_optim.py:29-64 /
+    align_pointclouds_pca, minimal_demo_vggt_unproject.py:122-186).
+    Returns (R, t) for ``src @ R + t``, R proper: src's least axis is
+    flipped where the product has det −1.
+
+    The sign of each eigenvector is the solver's choice (LAPACK's or
+    cuSOLVER's), so R can differ between packages and devices by a 180°
+    turn about an axis (ROADMAP Queue 3 w), as it can in the JAX package.
+    """
+
+    def axes_of(p):
+        mu = p.mean(0)
+        x = p - mu
+        with full_f32():
+            cov = x.T @ x / p.shape[0]
+        return mu, torch.linalg.eigh(cov)[1]        # columns ascending
+
+    mu_s, v_s = axes_of(src)
+    mu_d, v_d = axes_of(dst)
+    with full_f32():
+        det = torch.linalg.det(v_s @ v_d.T)
+        flip = torch.ones(3, dtype=src.dtype, device=src.device)
+        flip[0] = torch.where(det < 0, -1.0, 1.0)
+        R = (v_s * flip) @ v_d.T
+        t = mu_d - mu_s @ R
+    return R, t

@@ -3,8 +3,8 @@
 
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
-card (``cuda``, the default) or ``cpu``. Phases 5 and 6 are ported; asking
-for any other raises before anything runs.
+card (``cuda``, the default) or ``cpu``. Phases 5, 6, 7 and 9 are ported;
+asking for any other raises before anything runs.
 """
 
 from __future__ import annotations
@@ -29,6 +29,16 @@ def _phase6(cfg: Config, device) -> None:
     phase6_pose.run(cfg, device=device)
 
 
+def _phase7(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import phase7_assemble
+    phase7_assemble.run(cfg, device=device)
+
+
+def _phase9(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import phase9_eval
+    phase9_eval.run(cfg, device=device)
+
+
 PHASES: Dict[int, tuple] = {
     1: ("segmentation (detector + SAM → findings)", None),
     2: ("generative inpainting (amodal + empty room)", None),
@@ -36,9 +46,9 @@ PHASES: Dict[int, tuple] = {
     4: ("camera + point cloud (VGGT)", None),
     5: ("per-object cloud extraction", _phase5),
     6: ("differentiable-rendering pose fit", _phase6),
-    7: ("scene assembly + background mesh + ICP", None),
+    7: ("scene assembly + background mesh + ICP", _phase7),
     8: ("rendering", None),
-    9: ("evaluation", None),
+    9: ("evaluation", _phase9),
     10: ("MIDI-3D comparison baseline", None),
     11: ("DeepPriorAssembly comparison baseline", None),
 }

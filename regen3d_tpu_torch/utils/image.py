@@ -1,5 +1,6 @@
-"""Host-side image utilities of the port: PNG IO, mask ops, nearest resize,
-GIF (counterpart of the phase-5/6 subset of regen3d_tpu/utils/image.py).
+"""Host-side image utilities of the port: PNG IO, ``load_image_rgb``, mask
+ops, nearest and LANCZOS resizes, GIF (counterpart of the phase-5, 6, 7 and
+9 subset of regen3d_tpu/utils/image.py).
 
 The GPU machine this port runs on has neither PIL nor OpenCV, so PNG files
 go through a small codec on ``zlib`` and ``struct``:
@@ -12,17 +13,20 @@ go through a small codec on ``zlib`` and ``struct``:
 Reading converts as PIL's ``convert`` does (ITU-R 601-2 luma in PIL's
 fixed point for RGB → L), and :func:`resize_nearest` reproduces PIL's
 ``Image.NEAREST`` index mapping, so masks come out bit for bit as the JAX
-package's. Erosion and dilation are the JAX module's numpy branches, which
-it takes where OpenCV is absent. :func:`save_gif` needs PIL and imports it
-inside itself.
+package's. :func:`load_image_rgb` composites alpha over white
+(:func:`alpha_over_white`) and resizes with LANCZOS (:func:`resize_lanczos`)
+in Pillow's fixed-point arithmetic, bit for bit. Erosion and dilation are
+the JAX module's numpy branches, which it takes where OpenCV is absent.
+:func:`save_gif` needs PIL and imports it inside itself.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -138,6 +142,129 @@ def _to_rgb(img: np.ndarray, mode: str) -> np.ndarray:
     if mode in ("L", "LA"):
         return np.repeat(img[..., :1], 3, axis=-1)
     return img[..., :3]
+
+
+# --- load_image_rgb: alpha over white and LANCZOS, as Pillow computes them --
+
+# Pillow's fixed point: 22 fractional bits in the resampler
+# (libImaging/Resample.c), 7 in alpha compositing (libImaging/AlphaComposite.c)
+_RESAMPLE_BITS = 22
+_COMPOSITE_BITS = 7
+
+
+def _lanczos(x: float) -> float:
+    """Pillow's truncated sinc: sinc(x)·sinc(x/3) on [−3, 3)."""
+    if not -3.0 <= x < 3.0:
+        return 0.0
+
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+
+    return sinc(x) * sinc(x / 3.0)
+
+
+def _lanczos_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` for LANCZOS over the whole axis and
+    ``normalize_coeffs_8bpc``: (first source index (n_out,), fixed-point
+    weights (n_out, ksize) int64, 0 past each window). The arithmetic is
+    Pillow's double-precision order, with libm's ``sin``."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(n_out, np.int64)
+    kk = np.zeros((n_out, ksize), np.int64)
+    ss = 1.0 / filterscale
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for w in k:
+            ww += w
+        for x, w in enumerate(k):
+            w = w / ww if ww != 0.0 else w
+            w = w * (1 << _RESAMPLE_BITS)
+            kk[xx, x] = int(w - 0.5) if w < 0 else int(w + 0.5)
+        first[xx] = xmin
+    return first, kk
+
+
+def _resample_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One of Pillow's 8-bit passes along ``axis`` of (H, W, C) uint8:
+    Σ pixel·weight from half a unit, then >> 22 clipped to [0, 255]."""
+    n_in = img.shape[axis]
+    first, kk = _lanczos_coeffs(n_in, n_out)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((n_out,) + src.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int64)
+    bshape = (n_out,) + (1,) * (src.ndim - 1)
+    for x in range(kk.shape[1]):
+        idx = np.minimum(first + x, n_in - 1)
+        acc += src[idx] * kk[:, x].reshape(bshape)
+    out = np.clip(acc >> _RESAMPLE_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_lanczos(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """``Image.fromarray(arr).resize((w, h), Image.LANCZOS)`` of an RGB or
+    L uint8 array, bit for bit: the horizontal pass first, then the
+    vertical, each only where that axis changes size."""
+    h, w = hw
+    out = np.asarray(arr)
+    squeeze = out.ndim == 2
+    if squeeze:
+        out = out[..., None]
+    if out.shape[1] != w:
+        out = _resample_axis(out, w, 1)
+    if out.shape[0] != h:
+        out = _resample_axis(out, h, 0)
+    return out[..., 0] if squeeze else out
+
+
+def alpha_over_white(rgba: np.ndarray) -> np.ndarray:
+    """``Image.alpha_composite(white, img).convert("RGB")`` of (H, W, 4)
+    uint8, bit for bit (Pillow's 7-bit fixed point, divisions by 255 as
+    (a + (a >> 8)) >> 8)."""
+    src = rgba.astype(np.int64)
+    a = src[..., 3:4]
+    blend = 255 * (255 - a)
+    outa255 = a * 255 + blend
+    coef1 = a * 255 * 255 * (1 << _COMPOSITE_BITS) // np.maximum(outa255, 1)
+    coef2 = 255 * (1 << _COMPOSITE_BITS) - coef1
+    tmp = src[..., :3] * coef1 + 255 * coef2 + (0x80 << _COMPOSITE_BITS)
+    out = (((tmp >> 8) + tmp) >> 8) >> _COMPOSITE_BITS
+    out = np.where(a == 0, 255, out)
+    return out.astype(np.uint8)
+
+
+def load_image_rgb(path: str, max_side: Optional[int] = 1280) -> np.ndarray:
+    """A PNG → RGB uint8, as the JAX package's ``load_image_rgb`` gives it:
+    alpha composited over white, then resized with LANCZOS so the longest
+    side is at most ``max_side``. Other formats raise: the GPU machine has
+    no PIL to decode them."""
+    with open(path, "rb") as f:
+        sig = f.read(8)
+    if sig != _PNG_SIG:
+        raise NotImplementedError(
+            f"{path}: load_image_rgb reads PNG only (no PIL to decode other "
+            "formats)")
+    img, mode = read_png(path)
+    if mode in ("RGBA", "LA"):
+        rgba = (img if mode == "RGBA" else
+                np.concatenate([np.repeat(img[..., :1], 3, -1), img[..., 1:]],
+                               -1))
+        rgb = alpha_over_white(rgba)
+    else:
+        rgb = _to_rgb(img, mode)
+    h, w = rgb.shape[:2]
+    if max_side and max(w, h) > max_side:
+        scale = max_side / max(w, h)
+        rgb = resize_lanczos(rgb, (round(h * scale), round(w * scale)))
+    return np.ascontiguousarray(rgb)
 
 
 def save_image(path: str, arr: np.ndarray) -> None:

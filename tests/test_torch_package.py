@@ -49,6 +49,13 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.phase5_extract",
     "regen3d_tpu_torch.pipeline.phase6_pose",
     "regen3d_tpu_torch.orchestrator", "regen3d_tpu_torch.__main__",
+    "regen3d_tpu_torch.utils.evalstore",
+    "regen3d_tpu_torch.ops.sampling", "regen3d_tpu_torch.ops.icp",
+    "regen3d_tpu_torch.ops.marching_cubes", "regen3d_tpu_torch.ops.poisson",
+    "regen3d_tpu_torch.ops.metrics", "regen3d_tpu_torch.models.lpips",
+    "regen3d_tpu_torch.pipeline.depth", "regen3d_tpu_torch.pipeline.texture",
+    "regen3d_tpu_torch.pipeline.phase7_assemble",
+    "regen3d_tpu_torch.pipeline.phase9_eval",
 ]
 
 

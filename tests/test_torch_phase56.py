@@ -124,6 +124,12 @@ def _world_to_store(world):
 @pytest.fixture(scope="module")
 def bus(tmp_path_factory):
     root = tmp_path_factory.mktemp("bus")
+    return root, write_bus(root)
+
+
+def write_bus(root):
+    """The phase-5/6 inputs under root/output (and root/tmp); returns
+    {label: finding stem}."""
     cfg = default_config(str(root / "output"))
     art = Artifacts(cfg)
     cam = Camera(R=torch.eye(3), T=torch.zeros(3),
@@ -173,7 +179,7 @@ def bus(tmp_path_factory):
         save_glb(art.asset_glb(stem), SceneData(meshes=[MeshData(
             name=stem, vertices=(v * 1.7 + [0.3, 0.1, -0.2]).astype(np.float32),
             faces=f)]))
-    return root, stems
+    return stems
 
 
 def _no_cv2():
@@ -343,8 +349,8 @@ def test_cli_runs_phases_5_and_6_and_refuses_the_others(bus, tmp_path):
                   early_stop_min_iterations=2, debug_save=True,
                   grid_rotation_steps=4)
     (work / "src" / "cfg.yaml").write_text(yaml.safe_dump(values))
-    with pytest.raises(NotImplementedError, match="phase 7 is not ported yet"):
-        orchestrator.main(["-p", "5", "6", "7", "--config",
+    with pytest.raises(NotImplementedError, match="phase 8 is not ported yet"):
+        orchestrator.main(["-p", "5", "6", "8", "--config",
                            str(work / "src" / "cfg.yaml"), "--device", "cpu"])
     assert not (work / "output" / "masks").exists()
     orchestrator.main(["-p", "5", "6", "--config",
