@@ -34,14 +34,26 @@ Phases, each reported on one line:
 3. scene_step at the full VGGT-1B width and depth (random weights from a
    seed), 2 frames and 8 objects, checked finite and, on a small config,
    against the same step on the CPU's plain versions;
-4. fit_poses at phase 6's default configuration (1024², 32-px tiles, 128
+4. phase 4 (pipeline/phase4_camera.py): a small VGGT through
+   run_vggt_inference on the card against the CPU, plain and with FastVGGT
+   merging (the CPU replaying the card's merge choices); the oracle phase
+   4 (export_reconstruction of a synthetic frame, then phase 5 on each
+   device); a small shifted-views bundle adjustment on the card against
+   the CPU; then phase_scene's VGGT-1B through phase4_camera.run on a
+   960×1280 input and empty room (padded to 1280², resized to 518²),
+   plain, with use_ba and with token_merge_ratio 0.5, each timed by stage
+   and gated on the artifact contract (every file finite, frame 0's
+   camera R_fix, the COLMAP text read back, the points kept) and the flash
+   kernel's launches; the flash kernel at the merged global length against
+   its plain version;
+5. fit_poses at phase 6's default configuration (1024², 32-px tiles, 128
    faces per tile, edge rasterizer, 2048 faces and 4096 points per object):
    5 iterations against the plain edge path, then 100 of its 300
    iterations on the kernels (the bus phase below runs all 300), then one
    iteration's wall time, device time and launches from fits of 5 and 10
    iterations under torch.profiler, with the ten device operations with the
    most time;
-5. phases 5, 6, 7 and 9 through the port's orchestrator
+6. phases 5, 6, 7 and 9 through the port's orchestrator
    (run_phases(cfg, [5, 6, 7, 9]) with the defaults but write_fit_gifs
    off) on a synthetic room's output bus built with the port's writers:
    960×1280 findings of 8 objects (~20k faces each, 5 on the floor) and
@@ -49,7 +61,9 @@ Phases, each reported on one line:
    input image, a 720×960 stand-in render and a GT scene; the fit at
    1024 × 1344 on the silhouette kernels, which are first held to their
    plain versions at that batch (with a 5-iteration fit on the kernels
-   against the plain edge path and a fit-GIF frame on the card against the
+   against the plain edge path, the same fit twice bit for bit, a probe
+   of the former atomic accumulations and one iteration's time with them
+   and with the fixed order, and a fit-GIF frame on the card against the
    CPU); every artifact written, every loss finite and below its initial
    value, each object's pose error against the truth printed beside a fit
    without the silhouette term; phase 7 (60,000 samples, a 128³ Poisson
@@ -57,15 +71,16 @@ Phases, each reported on one line:
    gated on their artifacts and finite metrics, with their stage times,
    ICP's ms per iteration (and its device time) and the bake's time and
    memory; then phases 5 and 6, and 7 and 9, on a small bus on the card
-   against the CPU; then LPIPS (seeded init) timed at 960×1280, after a
+   against the CPU, two card runs of its phase 6 writing the same GLBs
+   bit for bit; then LPIPS (seeded init) timed at 960×1280, after a
    small pair on the card against the CPU;
-6. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
+7. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
    weights on the CPU (f32, plain versions), then detect_and_segment with
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
    seed) on a 960×1280 synthetic room with 8 boxes from a fixed detector and
    both decoder passes: one encode per call, every mask finite and
    non-empty;
-7. DiT training: a small DiT's flow-matching step on the card (bf16
+8. DiT training: a small DiT's flow-matching step on the card (bf16
    compute, f32 parameters, kernels) against the CPU (f32, plain versions),
    loss and three gradients, with the AdaLN-Zero leaves drawn non-zero;
    then DiTConfig.base() (random weights from a seed) trained for 30 steps
@@ -74,7 +89,7 @@ Phases, each reported on one line:
    launches per step of each flash kernel, and the loss on a fixed batch
    falls; the host's and the device's time for each call of a step (loss,
    backward, AdamW); then sample() at base (4 steps, guidance 5, B = 6);
-8. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
+9. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
    times), and one more SAM-H VJP under torch.profiler, split into its ten
@@ -88,6 +103,7 @@ line is {"ok": true, "device": {...}}. Any failure exits non-zero without it.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -150,7 +166,8 @@ KERNELS = {
                            replaces="regen3d_tpu/ops/pallas_rasterize.py:85"),
 }
 # the launch counts of each main-path run, summed into the kernels line
-MAIN_PATHS = ("scene_launches", "fit_launches", "bus_launches",
+MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
+              "phase4_merge_launches", "fit_launches", "bus_launches",
               "sam_launches", "dit_launches", "dit_sample_launches",
               "sam_grad_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
@@ -1204,13 +1221,14 @@ def phase_fit(results, iters_check=5, iters=100):
     fit_split(init, batch, cam, cfg)
 
 
-def fit_split(init, batch, cam, cfg, short=5):
+def fit_split(init, batch, cam, cfg, short=5, quiet=False):
     """Where a phase-6 iteration's time goes: fits of ``short`` and
     2·``short`` iterations, each once on the host's clock and once under
     torch.profiler; the difference over ``short`` iterations is one
     iteration's wall time, device time and launches, without the fit's
     set-up (bins, final loss). The ten device operations with the most time
-    are those of the short fit's window."""
+    are those of the short fit's window. With ``quiet``, nothing is logged
+    and the per-iteration {wall, dev, launches} is returned."""
     import dataclasses
 
     import torch
@@ -1241,6 +1259,8 @@ def fit_split(init, batch, cam, cfg, short=5):
         return "; ".join(f"{name} {ms:.2f} ms ({ms / dev[short]:.1%}, {c}x)"
                          for ms, name, c in rows)
 
+    if quiet:
+        return per
     log(f"phase-6 iteration split ({short} vs {2 * short} iterations): "
         f"wall {per['wall']:.2f} ms, device {per['dev']:.2f} ms "
         f"({per['dev'] / per['wall']:.1%} of wall), {per['launches']:.1f} "
@@ -1770,6 +1790,13 @@ def bus_small_check():
         _glb_vertices(root / "cuda" / "output" / "glb" / f"{stem}.glb")
         - _glb_vertices(root / "cuda2" / "output" / "glb" / f"{stem}.glb")
     ).max()) for stem in truth)
+    same = [(root / "cuda" / "output" / "glb" / f"{stem}.glb").read_bytes()
+            == (root / "cuda2" / "output" / "glb" / f"{stem}.glb").read_bytes()
+            for stem in truth]
+    if not all(same):
+        raise AssertionError(f"small bus: two card runs of phase 6 wrote "
+                             f"other GLBs for {same.count(False)} objects "
+                             f"({again:.3e} apart)")
     for stem in truth:
         vg, vc = (_glb_vertices(root / d / "output" / "glb" / f"{stem}.glb")
                   for d in devs)
@@ -2116,6 +2143,78 @@ def bus79_main(main, spies, stages7, timings):
     return bad
 
 
+@contextlib.contextmanager
+def _atomic_scatters():
+    """The fit's accumulations as they were before they took a fixed order:
+    ``index_add`` in the point-to-mesh and kNN backwards and plain
+    advanced indexing (whose backward is an accumulating ``index_put_``)
+    in gather_faces and gather_rows. For fit_determinism only."""
+    from regen3d_tpu_torch.ops import knn, point_mesh, rasterize
+
+    saved = (point_mesh.scatter_add_rows, knn.scatter_add_rows,
+             rasterize.take_rows)
+
+    def index_add(base, idx, src):
+        return base.index_add(0, idx.long(), src)
+
+    def index(x, idx):
+        return x[idx.long()]
+
+    point_mesh.scatter_add_rows = knn.scatter_add_rows = index_add
+    rasterize.take_rows = index
+    try:
+        yield
+    finally:
+        (point_mesh.scatter_add_rows, knn.scatter_add_rows,
+         rasterize.take_rows) = saved
+
+
+def fit_determinism(init, batch, cam, short):
+    """Which accumulation made phase 6's fit differ between runs (ROADMAP
+    Queue 3 z), and what the fixed order costs: the 5-iteration bus fit
+    twice with the former atomic accumulations (_atomic_scatters), twice
+    more with them under torch.use_deterministic_algorithms (set for this
+    probe only, warn_only), each pair's largest parameter difference; then
+    one iteration's wall and device time (fit_split, fits of 3 and 6
+    iterations) with the former and with the fixed-order accumulations.
+    Returns the line to print."""
+    import warnings
+
+    import torch
+
+    from regen3d_tpu_torch.pipeline.pose_fit import fit_poses
+
+    t0 = time.perf_counter()
+
+    def pair():
+        a, b = (fit_poses(init, batch, cam, short) for _ in range(2))
+        torch.cuda.synchronize()
+        return max(float((x - y).abs().max()) for x, y in zip(a.params,
+                                                               b.params))
+
+    with _atomic_scatters():
+        atomic = pair()
+        saved = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                flagged = pair()
+        finally:
+            torch.use_deterministic_algorithms(saved)
+        before = fit_split(init, batch, cam, short, short=3, quiet=True)
+    after = fit_split(init, batch, cam, short, short=3, quiet=True)
+    return (f"determinism probe, two 5-iteration fits with the former "
+            f"index_add/index_put accumulations {atomic:.3e} apart, with "
+            f"them under use_deterministic_algorithms {flagged:.3e} apart; "
+            f"one iteration (fit_split) before the fixed order: wall "
+            f"{before['wall']:.2f} ms, device {before['dev']:.2f} ms, "
+            f"{before['launches']:.1f} launches; after: wall "
+            f"{after['wall']:.2f} ms, device {after['dev']:.2f} ms, "
+            f"{after['launches']:.1f} launches (the probe "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
 def phase_bus(results):
     """Phases 5, 6, 7 and 9 through the port's orchestrator on a synthetic
     room's output bus at phase 6's real size (960×1280 findings → 1024 × 1344
@@ -2140,11 +2239,13 @@ def phase_bus(results):
     finite; the silhouette kernels launch 301 and 300 times. Beside it one
     20-iteration ICP at the same clouds under torch.profiler (its device
     time against its wall time: the host's read of the stopping test each
-    iteration). Printed, to place run-to-run variation: the 5-iteration
-    fit run twice, phase 5's outputs of the 0-iteration and the counted
-    run (same inputs) compared byte for byte. Last, phases 5 and 6 and then
-    7 and 9 on a small bus on the card against the CPU
-    (bus_small_check)."""
+    iteration). The 5-iteration fit run twice must repeat bit for bit
+    (ROADMAP Queue 3 z), beside fit_determinism's probe of the former
+    atomic accumulations; printed, phase 5's outputs of the 0-iteration
+    and the counted run (same inputs) compared byte for byte. Last, phases
+    5 and 6 and then 7 and 9 on a small bus on the card against the CPU
+    (bus_small_check), whose phase 6 run twice on the card must write the
+    same GLBs bit for bit."""
     import dataclasses
     import shutil
 
@@ -2210,6 +2311,11 @@ def phase_bus(results):
     torch.cuda.synchronize()
     fit_again = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
                                                                r_k2.params))
+    if not (all(torch.equal(a, b) for a, b in zip(r_k.params, r_k2.params))
+            and torch.equal(r_k.losses, r_k2.losses)):
+        raise AssertionError(f"bus fit, 5 iterations: two runs differ "
+                             f"({fit_again:.3e} in the params)")
+    probe = fit_determinism(init, batch, cam, short)
     p_err = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
                                                            r_p.params))
     l_err = float(((r_k.losses - r_p.losses).abs() / r_p.losses.abs()).max())
@@ -2280,14 +2386,14 @@ def phase_bus(results):
         f"(translation, rotation) initial → fitted (without the silhouette "
         f"term, {nosil.calls[-1]['out'].num_iters} iterations): {errs}; "
         f"5 iterations kernels vs plain: params {p_err:.3e}, losses "
-        f"{l_err:.3e}, the same 5 iterations again {fit_again:.2e} apart; "
+        f"{l_err:.3e}, the same 5 iterations again bit for bit; {probe}; "
         f"phase 5's clouds and normals in two runs bit for bit the same: "
         f"{p5_same}; fit frame card vs CPU: colour {f_err:.3e}, {f_other} "
         f"of {f_cov} covered pixels at z-ties; small bus card vs CPU: "
         f"{small[0]:.3%} of a cloud on one device only, normals |cos| ≥ "
         f"{small[1]:.6f}, {small[2]:.2%} within 1e-5, fitted vertices at "
         f"{small[3]:.2f} of one Adam step, two card runs of phase 6 "
-        f"{small[4]:.2e} apart; phases 7 and 9 card vs CPU: "
+        f"bit for bit the same GLBs; phases 7 and 9 card vs CPU: "
         f"background Chamfer {small79['chamfer']:.2e} of a cell, colour "
         f"{small79['colour']:.2e}, GT points {small79['gt']:.2e}, aligned "
         f"prediction {small79['pred']:.2e}, ICP transform "
@@ -2434,7 +2540,7 @@ def phase_scene(results, runs=1):
         f"weights and activations through 4 attention layers)")
     if not (max(errs.values()) < 5e-2 and depth_err < 5e-2):
         raise AssertionError("small VGGT on the card disagrees with the CPU")
-    del cpu_model, gpu_model
+    del gpu_model
 
     cfg = VGGTConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2491,6 +2597,490 @@ def phase_scene(results, runs=1):
         f"{int(res.points_valid.sum())}; launches {counts}")
     results["scene_launches"] = counts
     results["scene_sec"] = ts[len(ts) // 2]
+    # phase_camera drives phase 4 with these two models, then drops them
+    results["vggt_models"] = dict(small=cpu_model, full=model)
+
+
+def _camera_pngs(root):
+    """Two small PNGs for the small VGGT: a 48×64 one (its pad rows are
+    masked) and a 56×56 one, noise over smooth colour ramps."""
+    import numpy as np
+
+    from regen3d_tpu_torch.utils.image import save_image
+
+    rng = np.random.default_rng(5)
+    paths = []
+    for name, (h, w) in (("wide.png", (48, 64)), ("square.png", (56, 56))):
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([xx * 255 / w, yy * 255 / h, (xx + yy) * 127 / (h + w)],
+                       -1) + rng.normal(0, 20, (h, w, 3))
+        paths.append(str(root / name))
+        save_image(paths[-1], np.clip(img, 0, 255).astype(np.uint8))
+    return tuple(paths)
+
+
+@contextlib.contextmanager
+def _merge_decisions(record=None, replay=None):
+    """FastVGGT merging with its decisions recorded (``record``, a list
+    that gains each call's (best, kept_idx, merged_idx) on the CPU) or
+    replayed (``replay``, such a list, consumed in order): the merge itself
+    is computed as models/vggt._merge_global_tokens computes it, from the
+    decisions given. For camera_small_check only."""
+    import torch
+
+    from regen3d_tpu_torch.models import vggt
+
+    orig = vggt._merge_global_tokens
+
+    def recorded(g, f, n_tok, n_special, r):
+        compact, info = orig(g, f, n_tok, n_special, r)
+        record.append(tuple(t.cpu() for t in info))
+        return compact, info
+
+    def replayed(g, f, n_tok, n_special, r):
+        best, kept_idx, merged_idx = (t.to(g.device) for t in replay.pop(0))
+        d = g.shape[-1]
+        src = g[n_tok:].reshape(f - 1, n_tok, d)
+        src_patch = src[:, n_special:].reshape(-1, d)
+        mask = torch.zeros(src_patch.shape[0], dtype=g.dtype, device=g.device)
+        mask[merged_idx] = 1.0
+        onehot = (best[:, None] == torch.arange(n_tok, device=g.device)).to(
+            g.dtype) * mask[:, None]
+        dst = (g[:n_tok] + onehot.T @ src_patch) / (1.0 + onehot.sum(0))[:, None]
+        compact = torch.cat([dst, src[:, :n_special].reshape(-1, d),
+                             src_patch[kept_idx]], 0)
+        return compact, (best, kept_idx, merged_idx)
+
+    vggt._merge_global_tokens = recorded if replay is None else replayed
+    try:
+        yield
+    finally:
+        vggt._merge_global_tokens = orig
+
+
+def camera_small_check(cpu_model, root):
+    """run_vggt_inference with phase_scene's small VGGT (the same weights)
+    on the card (bf16, kernels) against the CPU (f32, plain versions), on
+    a non-square and a square PNG at the model's 70², conf_thres_value 1.0
+    and a cap of 2,000 points that bites: the same number of points kept;
+    points, R, t, fx and fy within phase_scene's bound (5e-2 of max |ref|,
+    from bf16). Then with token_merge_ratio 0.5: which tokens merge is a
+    discrete choice over similarities the card rounds to bf16, so the CPU
+    replays the card's choices (_merge_decisions) and is held to the same
+    bound, and the share of the card's merged tokens the CPU would have
+    chosen itself is printed. Returns ({ratio: (largest error, points
+    kept)}, that share)."""
+    import dataclasses
+
+    import torch
+
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.models.vggt import VGGT
+    from regen3d_tpu_torch.pipeline import phase4_camera
+
+    paths = _camera_pngs(root)
+    cfg = default_config(str(root / "output"), conf_thres_value=1.0,
+                         max_points_for_colmap=2000)
+    small = dataclasses.replace(cpu_model.cfg, dtype=torch.bfloat16)
+    res = small.image_size
+    errs, share = {}, None
+    for ratio in (0.0, 0.5):
+        c_model = VGGT(dataclasses.replace(cpu_model.cfg,
+                                           token_merge_ratio=ratio),
+                       device="cpu")
+        c_model.load_state_dict(cpu_model.state_dict())
+        g_model = VGGT(dataclasses.replace(small, token_merge_ratio=ratio))
+        g_model.load_state_dict(cpu_model.state_dict())
+        card, own = [], []
+        with _merge_decisions(record=card):
+            got = phase4_camera.run_vggt_inference(cfg, g_model, paths, res,
+                                                   device="cuda")
+        if ratio > 0:
+            with _merge_decisions(record=own):
+                phase4_camera.run_vggt_inference(cfg, c_model, paths, res,
+                                                 device="cpu")
+            share = sum(len(set(a[2].tolist()) & set(b[2].tolist()))
+                        for a, b in zip(card, own)) / sum(
+                len(a[2]) for a in card)
+        with _merge_decisions(replay=list(card)):
+            want = phase4_camera.run_vggt_inference(cfg, c_model, paths, res,
+                                                    device="cpu")
+        worst = {}
+        for name, w in want.items():
+            g = got[name]
+            if len(g["points"]) != len(w["points"]):
+                raise AssertionError(
+                    f"small phase 4 (merge {ratio}): {name} kept "
+                    f"{len(g['points'])} points on the card, "
+                    f"{len(w['points'])} on the CPU")
+            for key in ("points", "R", "t", "fx", "fy"):
+                ref = torch.as_tensor(w[key], dtype=torch.float64)
+                e = float((torch.as_tensor(g[key], dtype=torch.float64)
+                           - ref).abs().max() / ref.abs().max())
+                worst[key] = max(worst.get(key, 0.0), e)
+        errs[ratio] = (worst, {n: len(w["points"]) for n, w in want.items()})
+        if max(worst.values()) >= 5e-2:
+            raise AssertionError(f"small phase 4 (merge {ratio}), card vs "
+                                 f"CPU: {worst} of max |ref| (tol 5e-2)")
+    return errs, share
+
+
+def camera_oracle_check(root):
+    """The verify skill's oracle phase 4 through the port: a small bus's
+    view points (build_bus, 240×320) written by export_reconstruction as
+    one synthetic frame (raw = diag(−1, −1, 1)·view / vggt_scene_scale,
+    identity camera, the bus's focal), then phase 5 on the card and on the
+    CPU (masks eroded by 1 px, as bus_small_check's): every object's cloud the same on both, at most 0.5% of a cloud on
+    one device only (bus_small_check's rule: projection and neighbour
+    ties round otherwise on the card). Returns that share and the points
+    exported."""
+    import shutil
+
+    import numpy as np
+
+    from regen3d_tpu_torch import orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.pipeline.phase4_camera import export_reconstruction
+    from regen3d_tpu_torch.pipeline.phase5_extract import scene_cloud_to_world
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    hw = (240, 320)
+    truth = build_bus(root / "bus", "cpu", hw=hw, vggt=160, grid=6,
+                      room_points=4000, empty_hw=(120, 160))
+    art = Artifacts(default_config(str(root / "bus" / "output")))
+    view = scene_cloud_to_world(
+        load_ply(art.scene_cloud_ply).vertices.astype(np.float64))
+    cfg = default_config(str(root / "bus" / "output"))
+    scale = float(cfg["vggt_scene_scale"])
+    focal = BUS_FOCAL * hw[0] / BUS_HW[0]
+    export_reconstruction(cfg, {"input.png": dict(
+        points=view * [-1.0, -1.0, 1.0] / scale, R=np.eye(3),
+        t=np.zeros(3), fx=focal, fy=focal, cx=hw[1] / 2.0, cy=hw[0] / 2.0,
+        width=hw[1], height=hw[0])})
+    for d in ("cuda", "cpu"):
+        shutil.copytree(root / "bus", root / d)
+        orchestrator.run_phases(default_config(
+            str(root / d / "output"), mask_shrink_pixels=1,
+            mask_shrink_iterations=1), [5], device=d)
+    only = 0.0
+    for stem in truth:
+        rows = [{tuple(v) for v in load_ply(str(
+            root / d / "output" / "pointclouds" / f"{stem}.ply")).vertices}
+            for d in ("cuda", "cpu")]
+        if not rows[1]:
+            raise AssertionError(f"oracle phase 4: no cloud for {stem}")
+        only = max(only, len(rows[0] ^ rows[1]) / len(rows[1]))
+    if only > 0.005:
+        raise AssertionError(f"oracle phase 4 then phase 5, card vs CPU: "
+                             f"{only:.3%} of a cloud on one device only "
+                             f"(tol 0.5%)")
+    return only, len(view)
+
+
+def ba_small_check():
+    """joint_bundle_adjust on a small shifted-views problem (a textured
+    plane seen twice, the second view shifted 4 px; tracks from the CPU's
+    predict_tracks) on the card against the CPU: the RMSE within 1e-3 px.
+    Returns the two RMSEs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from regen3d_tpu_torch.ops.bundle_adjust import joint_bundle_adjust
+    from regen3d_tpu_torch.ops.tracks import predict_tracks
+
+    rng = np.random.default_rng(4)
+    base = torch.from_numpy(rng.random((1, 3, 12, 12)).astype(np.float32))
+    img = F.interpolate(base, size=(96, 96), mode="bilinear",
+                        align_corners=False)[0].permute(1, 2, 0)
+    imgs = torch.stack([img, torch.roll(img, 4, dims=1)])
+    tr = predict_tracks(imgs, num_points=48)
+    xy, vis = tr.xy.numpy(), tr.vis.numpy()
+    f = 120.0
+    pp = np.tile(np.asarray([[48.0, 48.0]], np.float32), (2, 1))
+    pts0 = np.stack([(xy[0, :, 0] - 48.0) / f * 2.0,
+                     (xy[0, :, 1] - 48.0) / f * 2.0,
+                     np.full(len(xy[0]), 2.0)], -1).astype(np.float32)
+    d = xy[1] - xy[0]
+    med = np.median(d[vis[1] > 0.9], axis=0)
+    w = ((vis > 0.9) & (np.abs(d - med).max(-1) < 2.0)[None]).astype(np.float32)
+    args = (pts0, xy, w, np.tile(np.eye(3, dtype=np.float32), (2, 1, 1)),
+            np.zeros((2, 3), np.float32), np.full((2,), f, np.float32), pp)
+    rmse = {}
+    for dev in ("cuda", "cpu"):
+        res = joint_bundle_adjust(*(torch.as_tensor(a, device=dev)
+                                    for a in args), max_iterations=40,
+                                  refine_focal=False)
+        rmse[dev] = float(res.rmse_px)
+    if not (abs(rmse["cuda"] - rmse["cpu"]) <= 1e-3 and rmse["cpu"] < 0.5):
+        raise AssertionError(f"shifted-views BA, card vs CPU: RMSE {rmse}")
+    return rmse
+
+
+def _phase4_run(cfg, model):
+    """phase4_camera.run(cfg, model) on the card with its stages timed by
+    _CallSpy: (load and preprocess s, forward s, unprojection, filter and
+    the BA if on s, export s, total s, launches, the frames exported, the
+    model's output, the preprocessed inputs)."""
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.pipeline import phase4_camera
+
+    prep = _CallSpy(phase4_camera.preprocess_square)
+    export = _CallSpy(phase4_camera.export_reconstruction)
+    fwd = _CallSpy(model)
+    saved = (phase4_camera.preprocess_square,
+             phase4_camera.export_reconstruction)
+    phase4_camera.preprocess_square = prep
+    phase4_camera.export_reconstruction = export
+    try:
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phase4_camera.run(cfg, model=fwd, device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        (phase4_camera.preprocess_square,
+         phase4_camera.export_reconstruction) = saved
+    t_prep = sum(c["s"] for c in prep.calls)
+    t_fwd = fwd.calls[0]["s"]
+    t_export = export.calls[0]["s"]
+    return dict(prep=t_prep, fwd=t_fwd, export=t_export,
+                unproject=total - t_prep - t_fwd - t_export, total=total,
+                launches=counts, frames=export.calls[0]["args"][1],
+                out=fwd.calls[0]["out"], inputs=[c["out"] for c in prep.calls])
+
+
+def camera_artifact_check(cfg, run):
+    """Phase 4's artifact contract on one run's output: every file present
+    and finite; frame 0's camera.npz extrinsic R_fix and a zero translation
+    (within 1e-6: the rebase multiplies VGGT's f32 rotation by its own
+    transpose in f64, which is the identity only to the rotation's
+    orthogonality); ColmapReconstruction.read gives back the cameras,
+    images and points within the text's precision; the points kept equal
+    the confident, unpadded pixels, capped at max_points_for_colmap."""
+    import os
+
+    import numpy as np
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.transforms.conventions import R_FIX_CV2BLENDER
+    from regen3d_tpu_torch.utils.colmapio import ColmapReconstruction
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    art = Artifacts(cfg)
+    sparse = art.colmap_sparse
+    plys = [os.path.join(sparse, n) for n in (
+        "points.ply", "points_emptyRoom_pre.ply", "points_emptyRoom.ply",
+        "points_emptyRoom_aligned.ply")] + [art.scene_cloud_ply]
+    for p in plys:
+        v = load_ply(p).vertices
+        if not (len(v) and np.isfinite(v).all()):
+            raise AssertionError(f"phase 4: {p} empty or not finite")
+    for p in (art.camera_npz, art.camera_empty_npz):
+        with np.load(p) as z:
+            if not all(np.isfinite(z[k]).all() for k in z.files):
+                raise AssertionError(f"phase 4: {p} not finite")
+    with np.load(art.camera_npz) as z:
+        ext = z["extrinsic"]
+    e_rot = float(np.abs(ext[:3, :3] - R_FIX_CV2BLENDER).max())
+    e_t = float(np.abs(ext[:3, 3]).max())
+    if not (e_rot <= 1e-6 and e_t <= 1e-6):
+        raise AssertionError(f"phase 4: frame 0's extrinsic is R_fix within "
+                             f"{e_rot:.2e} and t within {e_t:.2e} (tol 1e-6)")
+    rec = ColmapReconstruction.read(sparse)
+    frames = run["frames"]
+    names = list(frames)
+    if [im.name for im in rec.images.values()] != names:
+        raise AssertionError("phase 4: images.txt names differ")
+    R0 = np.asarray(frames[names[0]]["R"], np.float64)
+    t0 = np.asarray(frames[names[0]]["t"], np.float64)
+    pts, e_cam, e_pose = [], 0.0, 0.0
+    for i, name in enumerate(names):
+        fr = frames[name]
+        want = np.asarray([fr["fx"], fr["fy"], fr["cx"], fr["cy"]])
+        e_cam = max(e_cam, float(np.abs(rec.cameras[i + 1].params - want).max()
+                                 / np.abs(want).max()))
+        R = np.asarray(fr["R"], np.float64) @ R0.T
+        t = np.asarray(fr["t"], np.float64) - R @ t0
+        got = rec.images[i + 1].cam_from_world()
+        e_pose = max(e_pose, float(np.abs(got[:, :3] - R).max()),
+                     float(np.abs(got[:, 3] - t).max()
+                           / max(np.abs(t).max(), 1.0)))
+        pts.append((np.asarray(fr["points"], np.float64) @ R0.T + t0)
+                   .astype(np.float32))
+    pts = np.concatenate(pts).astype(np.float64)
+    e_pts = float((np.abs(rec.points - pts)
+                   / np.maximum(np.abs(pts), 1e-30)).max())
+    if not (e_cam <= 1e-9 and e_pose <= 1e-6 and e_pts <= 1e-7
+            and len(rec.points) == len(pts)):
+        raise AssertionError(f"phase 4: COLMAP text read back: cameras "
+                             f"{e_cam:.2e} (tol 1e-9), poses {e_pose:.2e} "
+                             f"(tol 1e-6), points {e_pts:.2e} (tol 1e-7)")
+    thr = float(cfg.get("conf_thres_value", 1.0))
+    cap = int(cfg.get("max_points_for_colmap", 10_000_000))
+    conf = run["out"]["depth_conf"][0].cpu().numpy()
+    kept = []
+    for i, name in enumerate(names):
+        n = int(((conf[i] >= thr) & run["inputs"][i][1]).sum())
+        kept.append((len(frames[name]["points"]), min(n, cap)))
+    if any(a != b for a, b in kept):
+        raise AssertionError(f"phase 4: points kept {kept} (exported, "
+                             f"confident unpadded pixels capped)")
+    return dict(rot=e_rot, t=e_t, cam=e_cam, pose=e_pose, pts=e_pts,
+                kept=[a for a, _ in kept])
+
+
+def phase_camera(results):
+    """Phase 4 of the port (pipeline/phase4_camera.py) on the card. First
+    the small checks: phase_scene's small VGGT through run_vggt_inference
+    on the card against the CPU, plain and with token_merge_ratio 0.5
+    (camera_small_check); the oracle phase 4 (export_reconstruction, then
+    phase 5 on each device; camera_oracle_check); a small shifted-views
+    joint BA on the card against the CPU (ba_small_check). Then
+    phase_scene's VGGT-1B through phase4_camera.run on the bus's 960×1280
+    input and empty-room images (padded to 1280², resized to 518²) into a
+    fresh output root: its stages timed (load and preprocess, forward,
+    unprojection and filter, export), the artifact contract gated
+    (camera_artifact_check), the flash kernel's launches counted
+    (phase4_launches). The same with use_ba (2,048 query tracks, two passes
+    of 25 Gauss-Newton iterations): camera 0's translation bit for bit the
+    plain run's, its rotation and focal within 1e-6 (the BA's so3_exp ∘
+    so3_log and exp ∘ log round them), a finite RMSE and cameras. Then
+    with token_merge_ratio 0.5 (the same weights): times, launches, finite
+    artifacts, the forward alone timed plain and merged, and the flash
+    kernel at the compact global length held against its plain version
+    (fwd_case, fwd_error's bound)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.utils.image import save_image
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+
+    t_phase = time.perf_counter()
+    models = results.pop("vggt_models")
+    root = ROOT / "build" / "camera"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "small").mkdir(parents=True)
+    small, share = camera_small_check(models["small"], root / "small")
+    oracle, n_oracle = camera_oracle_check(root / "oracle")
+    ba_small = ba_small_check()
+
+    model = models["full"]
+    with torch.no_grad():    # warm-up, untimed and uncounted
+        model(torch.rand((1, 2, 518, 518, 3), device="cuda"))
+    objs = bus_objects()
+    image, empty = bus_images(objs, BUS_HW, "cuda", np.random.default_rng(0))
+    runs, arts = {}, {}
+    for name, over in (("plain", {}), ("ba", dict(use_ba=True)),
+                       ("merge", {})):
+        r = root / name
+        cfg = default_config(str(r / "output"), input_image=str(r / "input.png"),
+                             **over)
+        save_image(str(r / "input.png"), image)
+        save_image(Artifacts(cfg).empty_room, empty)
+        agg = model.aggregator
+        if name == "merge":
+            agg.cfg = dataclasses.replace(agg.cfg, token_merge_ratio=0.5)
+        try:
+            runs[name] = _phase4_run(cfg, model)
+        finally:
+            agg.cfg = dataclasses.replace(agg.cfg, token_merge_ratio=0.0)
+        arts[name] = camera_artifact_check(cfg, runs[name])
+        if runs[name]["launches"]["flash_fwd"] == 0:
+            raise AssertionError(f"phase 4 ({name}) did not launch the flash "
+                                 f"kernel")
+    fr_p = runs["plain"]["frames"]["input.png"]
+    fr_b = runs["ba"]["frames"]["input.png"]
+    e_r0 = float(np.abs(fr_b["R"] - fr_p["R"]).max())
+    e_f0 = max(abs(fr_b[k] / fr_p[k] - 1.0) for k in ("fx", "fy"))
+    rmse = fr_b.get("ba_rmse_px", float("nan"))
+    ba_cams = np.concatenate([np.ravel(f[k]) for f in
+                              runs["ba"]["frames"].values()
+                              for k in ("R", "t", "fx", "fy")])
+    if not (np.array_equal(fr_b["t"], fr_p["t"]) and e_r0 <= 1e-6
+            and e_f0 <= 1e-6 and np.isfinite(rmse)
+            and np.isfinite(ba_cams).all()):
+        raise AssertionError(
+            f"phase 4 with use_ba: camera 0's t equal {np.array_equal(fr_b['t'], fr_p['t'])}, "
+            f"R within {e_r0:.2e}, focal within {e_f0:.2e} (tol 1e-6), "
+            f"RMSE {rmse}, cameras finite {np.isfinite(ba_cams).all()}")
+    # the forward alone, plain and merged: host-clock median of 5 calls
+    agg = model.aggregator
+    x = torch.rand((1, 2, 518, 518, 3), device="cuda")
+    fwd_s = {}
+    for ratio in (0.0, 0.5):
+        agg.cfg = dataclasses.replace(agg.cfg, token_merge_ratio=ratio)
+        ts = []
+        with torch.no_grad():
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+        fwd_s[ratio] = sorted(ts[1:])[2]
+    agg.cfg = dataclasses.replace(agg.cfg, token_merge_ratio=0.0)
+    # the flash kernel at the merged compact global length
+    c = model.cfg
+    n_tok = 1 + c.num_register_tokens + c.grid * c.grid
+    r = int(0.5 * (n_tok - 1 - c.num_register_tokens))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    compact = fwd_case((1, c.num_heads, 2 * n_tok - r, 2 * n_tok - r,
+                        c.width // c.num_heads), gen, timed=False)
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], compact["err"])
+    results["phase4_launches"] = runs["plain"]["launches"]
+    results["phase4_ba_launches"] = runs["ba"]["launches"]
+    results["phase4_merge_launches"] = runs["merge"]["launches"]
+
+    def stages(x):
+        return (f"load and preprocess {x['prep']:.3f} s, forward "
+                f"{x['fwd']:.3f} s, unprojection and filter"
+                f"{' and BA' if x is runs['ba'] else ''} {x['unproject']:.3f}"
+                f" s, export {x['export']:.3f} s, total {x['total']:.3f} s, "
+                f"flash launches {x['launches']['flash_fwd']}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    a = arts["plain"]
+    def worst(e):
+        return ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+    log(f"phase 4, small VGGT card vs CPU, of max |ref| (tol 5e-2): "
+        f"{worst(small[0.0][0])} (points kept {small[0.0][1]}); merged 0.5, "
+        f"the CPU on the card's merge choices: {worst(small[0.5][0])}, "
+        f"{share:.1%} of the card's merged tokens the CPU's own choice; "
+        f"oracle phase 4 ({n_oracle} points exported) then "
+        f"phase 5, card vs CPU: {oracle:.3%} of a cloud on one device only; "
+        f"shifted-views BA RMSE card {ba_small['cuda']:.6f} px, CPU "
+        f"{ba_small['cpu']:.6f} px")
+    log(f"phase 4 VGGT-1B 518² x2 frames (960×1280 input and empty room): "
+        f"{stages(runs['plain'])}; points kept {a['kept']}; frame 0's "
+        f"extrinsic R_fix within {a['rot']:.2e}, t {a['t']:.2e}; COLMAP read "
+        f"back: cameras {a['cam']:.2e}, poses {a['pose']:.2e}, points "
+        f"{a['pts']:.2e}; {smi}")
+    log(f"phase 4 with use_ba (2048 query tracks, 2 x 25 GN iterations): "
+        f"{stages(runs['ba'])}; RMSE {rmse:.4f} px, tracks used "
+        f"{fr_b.get('ba_n_tracks_used')}; camera 0: t bit for bit, R "
+        f"{e_r0:.2e}, focal {e_f0:.2e}")
+    log(f"phase 4 with token_merge_ratio 0.5 (global length {2 * n_tok} -> "
+        f"{2 * n_tok - r}): {stages(runs['merge'])}; points kept "
+        f"{arts['merge']['kept']}; flash at the compact length: o err "
+        f"{compact['err']:.3e} (SDPA's {compact['sdpa_err']:.3e}); the "
+        f"forward alone, median of 5 after a warm-up: plain "
+        f"{fwd_s[0.0]:.4f} s, merged {fwd_s[0.5]:.4f} s")
+    log(f"phase_camera: {time.perf_counter() - t_phase:.1f} s")
+    del models, model
+    torch.cuda.empty_cache()
 
 
 def _room_image(h=960, w=1280, seed=0):
@@ -3002,11 +3592,13 @@ def main() -> int:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 3
 
+    t_start = time.perf_counter()
     results = {}
     phase_device(kernels, results)
     phase_kernels(results)
     phase_bwd_kernels(results)
     phase_scene(results)
+    phase_camera(results)
     phase_fit(results)
     phase_bus(results)
     phase_lpips(results)
@@ -3028,6 +3620,7 @@ def main() -> int:
                             library_ms=r["library_ms"],
                             **({"library": r["library"]} if "library" in r
                                else {})))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

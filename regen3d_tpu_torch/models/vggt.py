@@ -43,7 +43,10 @@ class VGGTConfig:
     camera_trunk_depth: int = 4
     dpt_features: int = 256
     dpt_out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
-    # FastVGGT token merging for the global blocks; not ported (0 = off)
+    # FastVGGT-style training-free token merging for the GLOBAL attention
+    # blocks (PAPERS.md: arXiv 2509.02560): the fraction of non-reference
+    # patch tokens merged into their most similar reference token before
+    # global attention and copied back after. 0 disables. No weight changes.
     token_merge_ratio: float = 0.0
     dtype: torch.dtype = torch.bfloat16
 
@@ -94,15 +97,74 @@ class DinoBackbone(nn.Module):
         return self.norm(x)[:, 1:], (gh, gw)
 
 
+def _merge_global_tokens(g, f, n_tok, n_special, r):
+    """FastVGGT-style bipartite merge for one batch element.
+
+    g (f·n_tok, D): frame-0 tokens are destinations; the r most-redundant
+    non-reference PATCH tokens (highest cosine similarity to any
+    destination) are averaged into their best destination; special tokens
+    and the remaining sources pass through. The order is ``jnp``'s: a
+    stable ascending sort of the scores, ties of the argmax to the first
+    destination. Returns (compact (f·n_tok − r, D), info for
+    :func:`_unmerge_global_tokens`)."""
+    d = g.shape[-1]
+    dst = g[:n_tok]
+    src = g[n_tok:].reshape(f - 1, n_tok, d)
+    src_spec = src[:, :n_special].reshape(-1, d)
+    src_patch = src[:, n_special:].reshape(-1, d)          # (M, D)
+    m = src_patch.shape[0]
+
+    a = src_patch / torch.clamp(
+        torch.linalg.norm(src_patch, dim=-1, keepdim=True), min=1e-6)
+    bb = dst / torch.clamp(torch.linalg.norm(dst, dim=-1, keepdim=True),
+                           min=1e-6)
+    sim = (a @ bb.T).float()                               # (M, n_tok)
+    best = torch.argmax(sim, dim=-1)                       # (M,)
+    score = torch.amax(sim, dim=-1)
+    order = torch.argsort(score, stable=True)              # ascending
+    kept_idx = order[:m - r]
+    merged_idx = order[m - r:]
+    merged_mask = torch.zeros(m, dtype=g.dtype, device=g.device)
+    merged_mask[merged_idx] = 1.0
+
+    # one-hot by comparison: F.one_hot checks its classes on the host,
+    # a synchronization in every global block
+    onehot = (best[:, None] == torch.arange(n_tok, device=g.device)).to(
+        g.dtype) * merged_mask[:, None]
+    counts = torch.sum(onehot, dim=0)                      # (n_tok,)
+    dst_new = (dst + onehot.T @ src_patch) / (1.0 + counts)[:, None]
+
+    compact = torch.cat([dst_new, src_spec, src_patch[kept_idx]], dim=0)
+    return compact, (best, kept_idx, merged_idx)
+
+
+def _unmerge_global_tokens(out, info, f, n_tok, n_special):
+    """Inverse of :func:`_merge_global_tokens`: merged sources take their
+    destination token's output (the FastVGGT copy-back)."""
+    best, kept_idx, merged_idx = info
+    d = out.shape[-1]
+    n_spec_all = (f - 1) * n_special
+    out_dst = out[:n_tok]
+    out_spec = out[n_tok:n_tok + n_spec_all]
+    out_kept = out[n_tok + n_spec_all:]
+    m = kept_idx.shape[0] + merged_idx.shape[0]
+    patch = torch.zeros(m, d, dtype=out.dtype, device=out.device)
+    patch[kept_idx] = out_kept
+    patch[merged_idx] = out_dst[best[merged_idx]]
+    src = torch.cat([out_spec.reshape(f - 1, n_special, d),
+                     patch.reshape(f - 1, -1, d)], dim=1)
+    return torch.cat([out_dst, src.reshape(-1, d)], dim=0)
+
+
 class Aggregator(nn.Module):
     """Alternating frame/global attention; returns per-layer taps
-    [frame_out ‖ global_out] (B, F, N, 2·width) and the patch grid."""
+    [frame_out ‖ global_out] (B, F, N, 2·width) and the patch grid. With
+    ``token_merge_ratio`` > 0 and several frames, each global block attends
+    over the merged compact sequence (FastVGGT), whose length is no
+    multiple of the flash kernel's tiles."""
 
     def __init__(self, c: VGGTConfig, device="cuda"):
         super().__init__()
-        if c.token_merge_ratio > 0:
-            raise NotImplementedError(
-                "token_merge_ratio > 0 (FastVGGT merging) is not ported")
         self.cfg = c
         self.patch_embed = DinoBackbone(c, device=device)
         self.camera_token = nn.Parameter(torch.zeros(2, 1, c.width,
@@ -127,12 +189,25 @@ class Aggregator(nn.Module):
         extra = extra[None].expand(b, *extra.shape).to(c.dtype)
         x = torch.cat([extra, x.reshape(b, f, n, c.width)], 2)
         n_tok = x.shape[2]
+        n_special = 1 + c.num_register_tokens
+        r = int(c.token_merge_ratio * (f - 1) * (n_tok - n_special))
         taps: List[torch.Tensor] = []
         for i in range(c.depth):
             h = getattr(self, f"frame_block{i}")(x.reshape(b * f, n_tok, c.width))
             frame_out = h.reshape(b, f, n_tok, c.width)
-            g = getattr(self, f"global_block{i}")(
-                frame_out.reshape(b, f * n_tok, c.width))
+            g = frame_out.reshape(b, f * n_tok, c.width)
+            block = getattr(self, f"global_block{i}")
+            if r > 0 and f > 1:
+                # global attention on the compact set; merged tokens copy
+                # their destination's output back
+                merged = [_merge_global_tokens(t, f, n_tok, n_special, r)
+                          for t in g]
+                out = block(torch.stack([cm for cm, _ in merged]))
+                g = torch.stack([
+                    _unmerge_global_tokens(o, info, f, n_tok, n_special)
+                    for o, (_, info) in zip(out, merged)])
+            else:
+                g = block(g)
             x = g.reshape(b, f, n_tok, c.width)
             taps.append(torch.cat([frame_out, x], -1))
         return taps, (gh, gw)

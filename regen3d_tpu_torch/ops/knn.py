@@ -12,8 +12,9 @@ move nearest neighbours. Ties go to the lowest target index, as JAX's
 :func:`nn_distances` is differentiable in both clouds through a custom
 backward that gathers the matched targets (O(N)) instead of keeping the
 distance matrix: ``gx = g·2(x − y[idx])`` and ``gy`` scatter-adds ``−gx``
-into the matched targets (``index_add_``, whose CUDA additions come in no
-fixed order: ``gy`` agrees to f32 rounding of its sums, not bit for bit).
+into the matched targets in a fixed order (``ops.scatter_add_rows``; CUDA's
+``index_add_`` adds in no fixed order, and a fit through it did not repeat
+bit for bit).
 
 All functions take optional validity masks for padded clouds.
 """
@@ -24,7 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from regen3d_tpu_torch.ops import full_f32
+from regen3d_tpu_torch.ops import full_f32, scatter_add_rows
 
 _BIG = 1e30
 
@@ -79,7 +80,7 @@ class _NNDistances(torch.autograd.Function):
             diff = torch.where(x_mask[:, None], diff, torch.zeros_like(diff))
         gx = g_d[:, None] * diff
         # dL/dy: −gx scatter-added into the matched targets
-        gy = torch.zeros_like(y).index_add_(0, idx.long(), -gx)
+        gy = scatter_add_rows(torch.zeros_like(y), idx, -gx)
         return gx, gy, None, None, None
 
 

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from regen3d_tpu_torch.ops import clip
+from regen3d_tpu_torch.ops import clip, scatter_add_rows
 from regen3d_tpu_torch.ops.rasterize import gather_faces, gather_rows
 
 _BIG = 1e30
@@ -157,16 +157,19 @@ class _PointMeshFaceDistance(torch.autograd.Function):
                                          t2[..., 2, :])
             g_tri_fp, g_pts_fp = torch.autograd.grad(d2, (t2, p2), w_fp)
 
+        # both triangle gradients into the vertices, then the face → point
+        # gradients into the points, each in a fixed order
         off = (torch.arange(b, device=verts.device) * n_v)[:, None, None]
-        g_verts = torch.zeros(b * n_v, 3, dtype=verts.dtype, device=verts.device)
-        g_verts.index_add_(0, (f_pf.long() + off).reshape(-1),
-                           g_tri_pf.reshape(-1, 3))
-        g_verts.index_add_(0, (faces.long() + off).reshape(-1),
-                           g_tri_fp.reshape(-1, 3))
+        g_verts = scatter_add_rows(
+            torch.zeros(b * n_v, 3, dtype=verts.dtype, device=verts.device),
+            torch.cat([(f_pf.long() + off).reshape(-1),
+                       (faces.long() + off).reshape(-1)]),
+            torch.cat([g_tri_pf.reshape(-1, 3), g_tri_fp.reshape(-1, 3)]))
         n_p = points.shape[1]
         offp = (torch.arange(b, device=points.device) * n_p)[:, None]
-        g_points = g_points.reshape(-1, 3).index_add(
-            0, (idx_fp.long() + offp).reshape(-1), g_pts_fp.reshape(-1, 3))
+        g_points = scatter_add_rows(g_points.reshape(-1, 3),
+                                    (idx_fp.long() + offp).reshape(-1),
+                                    g_pts_fp.reshape(-1, 3))
         return (g_verts.reshape(b, n_v, 3), g_points.reshape(b, n_p, 3),
                 None, None, None, None)
 

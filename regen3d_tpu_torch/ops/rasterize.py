@@ -25,21 +25,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from regen3d_tpu_torch.ops import clip
+from regen3d_tpu_torch.ops import clip, take_rows
 
 
 def gather_faces(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
-    """verts (B, V, C), faces (B, F, 3) → per-face corners (B, F, 3, C)."""
-    b = verts.shape[0]
-    bi = torch.arange(b, device=verts.device)[:, None, None]
-    return verts[bi, faces.long()]
+    """verts (B, V, C), faces (B, F, 3) → per-face corners (B, F, 3, C).
+    The backward adds into the vertices in a fixed order."""
+    return gather_rows(verts, faces)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, N, ...), idx (B, ...) → x[b, idx[b]] for every b."""
-    bi = torch.arange(x.shape[0], device=x.device)
-    bi = bi.reshape(-1, *([1] * (idx.dim() - 1)))
-    return x[bi, idx.long()]
+    """x (B, N, ...), idx (B, ...) → x[b, idx[b]] for every b. The backward
+    adds in a fixed order (``ops.take_rows``), where the indexing backward's
+    accumulating ``index_put_`` on the card does not."""
+    b, n = x.shape[:2]
+    off = (torch.arange(b, device=x.device) * n).reshape(
+        -1, *([1] * (idx.dim() - 1)))
+    return take_rows(x.reshape(b * n, *x.shape[2:]), idx.long() + off)
 
 
 def _faces_mask(faces: torch.Tensor, faces_mask) -> torch.Tensor:

@@ -3,8 +3,10 @@
 
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
-card (``cuda``, the default) or ``cpu``. Phases 5, 6, 7 and 9 are ported;
-asking for any other raises before anything runs.
+card (``cuda``, the default) or ``cpu``. Phases 4, 5, 6, 7 and 9 are
+ported; asking for any other raises before anything runs. Phase 4 needs a
+VGGT model object, which no checkpoint reader supplies yet: called from
+the CLI it raises as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,16 @@ from typing import Dict, List, Optional
 from regen3d_tpu_torch.config import Config, load_config
 
 log = logging.getLogger(__name__)
+
+
+def _phase4(cfg: Config, device) -> None:
+    if not bool(cfg.get("Use_VGGT", True)):
+        # the reference's dust3r variant (run.py:422-433)
+        raise NotImplementedError(
+            "Use_VGGT: false runs phase4_dust3r (DUSt3R pairwise stereo), "
+            "which is not ported yet")
+    from regen3d_tpu_torch.pipeline import phase4_camera
+    phase4_camera.run(cfg, device=device)
 
 
 def _phase5(cfg: Config, device) -> None:
@@ -43,7 +55,7 @@ PHASES: Dict[int, tuple] = {
     1: ("segmentation (detector + SAM → findings)", None),
     2: ("generative inpainting (amodal + empty room)", None),
     3: ("image → 3D assets (flow-matching DiT)", None),
-    4: ("camera + point cloud (VGGT)", None),
+    4: ("camera + point cloud (VGGT)", _phase4),
     5: ("per-object cloud extraction", _phase5),
     6: ("differentiable-rendering pose fit", _phase6),
     7: ("scene assembly + background mesh + ICP", _phase7),

@@ -12,12 +12,13 @@ Four conventions are in flight across the pipeline (SURVEY §7.3 item 5):
 The artifact contract (camera.npz written by phase 4, consumed by phases
 5/6/8 — reference: minimal_demo_vggt.py:160-255 and cam_utils.py:28-87)
 stores ``R_fix @ [R|t]``: the OpenCV world→camera extrinsic with the camera
-axes re-expressed through the reference's ``R_fix``
-(minimal_demo_vggt.py:165-173) — NOT a true Blender matrix_world. The
-constant matrices below match the reference's ``P2B``/``B2P``
-(global_utils.py:819-844) exactly, so reference-produced and repo-produced
-camera.npz / scene_vggt.ply / points.ply artifact sets are interchangeable.
-Phase 4's writers (the point fix into scene_vggt.ply) are not ported yet.
+axes re-expressed through :data:`R_FIX_CV2BLENDER` — NOT a true Blender
+matrix_world. The constant matrices below match the reference's ``R_fix``
+(minimal_demo_vggt.py:165-173) and ``P2B``/``B2P`` (global_utils.py:819-844)
+exactly, so reference-produced and repo-produced camera.npz /
+scene_vggt.ply / points.ply artifact sets are interchangeable. Phase 4
+writes them through :func:`opencv_extrinsic_to_blender_world` and
+:func:`vggt_points_to_scene_ply`.
 """
 
 from __future__ import annotations
@@ -26,6 +27,14 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+# OpenCV/VGGT camera axes → Blender: the reference's exact R_fix
+# (minimal_demo_vggt.py:165-173) — a +90° rotation about X taking
+# (+X right, +Y down, +Z fwd) to Blender's Z-up layout.
+R_FIX_CV2BLENDER = np.array(
+    [[1.0, 0.0, 0.0],
+     [0.0, 0.0, -1.0],
+     [0.0, 1.0, 0.0]], dtype=np.float64)
 
 # Constant basis-change matrices between Blender world and the P3D render
 # frame (convention facts; reference: global_utils.py:819-844).
@@ -71,6 +80,33 @@ def p3d_to_blender(R: np.ndarray, T: np.ndarray) -> np.ndarray:
     B[:3, :3] = B3
     B[:3, 3] = col3
     return B
+
+
+def opencv_extrinsic_to_blender_world(E_cv: np.ndarray) -> np.ndarray:
+    """COLMAP/OpenCV world→camera extrinsic [R|t] (3x4 or 4x4) → the 4x4
+    'extrinsic' stored in camera.npz: ``R_fix @ R_cw`` and ``R_fix @ t_cw``,
+    UNSCALED (the reference's layout, minimal_demo_vggt.py:160-186), i.e.
+    the cam-from-world transform with rotated camera axes, not a true
+    matrix_world."""
+    E_cv = np.asarray(E_cv, dtype=np.float64)
+    out = np.eye(4, dtype=np.float64)
+    out[:3, :3] = R_FIX_CV2BLENDER @ E_cv[:3, :3]
+    out[:3, 3] = R_FIX_CV2BLENDER @ E_cv[:3, 3]
+    return out
+
+
+def vggt_points_to_scene_ply(points: np.ndarray, ext_blender: np.ndarray,
+                             scale: float) -> np.ndarray:
+    """Raw VGGT-world points → the store frame of scene_vggt.ply, the
+    reference's point fix (minimal_demo_vggt.py:176-186) operation for
+    operation in f64: ``p @ R_fix.T`` → ``@ B2P(ext).R.T`` → ``+ B2P(ext).T``
+    → Y-flip → ``× vggt_scene_scale``. Phase 5 undoes it through B2P(I) and
+    the Y-flip (pc_utils.py:25-37), exactly when the frame-0 camera is the
+    identity, which phase 4's rebase makes it."""
+    R_p, T_p = blender_to_p3d(np.asarray(ext_blender, np.float64))
+    q = (np.asarray(points, np.float64) @ R_FIX_CV2BLENDER.T) @ R_p.T + T_p
+    q[:, 1] *= -1.0
+    return q * float(scale)
 
 
 def vggt_raw_to_world(points: np.ndarray, scale: float) -> np.ndarray:

@@ -56,6 +56,9 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.depth", "regen3d_tpu_torch.pipeline.texture",
     "regen3d_tpu_torch.pipeline.phase7_assemble",
     "regen3d_tpu_torch.pipeline.phase9_eval",
+    "regen3d_tpu_torch.utils.colmapio", "regen3d_tpu_torch.ops.tracks",
+    "regen3d_tpu_torch.ops.bundle_adjust",
+    "regen3d_tpu_torch.pipeline.phase4_camera",
 ]
 
 

@@ -69,3 +69,32 @@ def test_points_to_mesh_argmin_matches():
         np.testing.assert_allclose(d_t[b].numpy(), np.asarray(d_j), rtol=1e-5,
                                    atol=1e-7)
         np.testing.assert_array_equal(i_t[b].numpy(), np.asarray(i_j))
+
+
+@pytest.mark.parametrize("shape", [(3,), ()])
+def test_scatter_add_rows_is_index_add_in_a_fixed_order(shape):
+    """The fixed-order scatter of the point-to-mesh, kNN and gather
+    backwards (ROADMAP Queue 3 z): equal to ``index_add`` within f32
+    rounding (on the CPU, bit for bit: both add each destination's rows in
+    index order from the left), the same bits on a second call, and
+    destinations without rows keep their base."""
+    from regen3d_tpu_torch.ops import scatter_add_rows, take_rows
+
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.normal(size=(40,) + shape).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 30, 500))       # 30..39 get none
+    src = torch.from_numpy((rng.normal(size=(500,) + shape)
+                            * 10.0 ** rng.integers(-4, 4, (500,) + shape))
+                           .astype(np.float32))
+    want = base.index_add(0, idx, src)
+    got = scatter_add_rows(base, idx, src)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, want)
+    assert torch.equal(scatter_add_rows(base, idx, src), got)
+    assert torch.equal(got[30:], base[30:])
+    # the gather whose backward it is
+    x = base.clone().requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(500,) + shape).astype(np.float32))
+    (gx,) = torch.autograd.grad(take_rows(x, idx), x, g)
+    assert torch.equal(gx, torch.zeros_like(base).index_add(0, idx, g))
