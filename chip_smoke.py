@@ -32,8 +32,8 @@ Phases, each reported on one line:
    and kept (the cull's) pixel-face pairs; no live pair in a culled block;
    ptxas reports no spills and no stack frame for either kernel;
 3. scene_step at the full VGGT-1B width and depth (random weights from a
-   seed), 2 frames and 8 objects, checked finite and, on a small config,
-   against the same step on the CPU's plain versions;
+   seed), 2 frames and 8 objects, 10 fit iterations, checked finite and,
+   on a small config, against the same step on the CPU's plain versions;
 4. phase 4 (pipeline/phase4_camera.py): a small VGGT through
    run_vggt_inference on the card against the CPU, plain and with FastVGGT
    merging (the CPU replaying the card's merge choices); the oracle phase
@@ -74,13 +74,23 @@ Phases, each reported on one line:
    against the CPU, two card runs of its phase 6 writing the same GLBs
    bit for bit; then LPIPS (seeded init) timed at 960×1280, after a
    small pair on the card against the CPU;
-7. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
+7. phase 3 (phase_assets) on the committed checkpoint: the generator on
+   the card against the CPU (condition tokens, 4 Euler steps, a 32³ dense
+   and a 64³ two-level decode; max and mean errors); then phase3_assets.run at the defaults (50
+   steps, guidance 5, the two-level 256³ decode) on RGBA crops of 4 of the
+   bus's 8 objects, timed by stage and gated on a non-placeholder GLB per
+   object with colours in [0, 1] and the flash launches the attentions
+   count; a second generate_sdf_batch from the same seed bit for bit; the
+   flash kernel at phase 3's three shapes (the DiT's guided batch, the
+   encoder's and trunk's self-attention, a decoder query chunk), timed
+   beside SDPA and kept out of the forward sum;
+8. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
    weights on the CPU (f32, plain versions), then detect_and_segment with
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
    seed) on a 960×1280 synthetic room with 8 boxes from a fixed detector and
    both decoder passes: one encode per call, every mask finite and
    non-empty;
-8. DiT training: a small DiT's flow-matching step on the card (bf16
+9. DiT training: a small DiT's flow-matching step on the card (bf16
    compute, f32 parameters, kernels) against the CPU (f32, plain versions),
    loss and three gradients, with the AdaLN-Zero leaves drawn non-zero;
    then DiTConfig.base() (random weights from a seed) trained for 30 steps
@@ -89,7 +99,7 @@ Phases, each reported on one line:
    launches per step of each flash kernel, and the loss on a fixed batch
    falls; the host's and the device's time for each call of a step (loss,
    backward, AdamW); then sample() at base (4 steps, guidance 5, B = 6);
-9. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
+10. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
    times), and one more SAM-H VJP under torch.profiler, split into its ten
@@ -168,8 +178,8 @@ KERNELS = {
 # the launch counts of each main-path run, summed into the kernels line
 MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "phase4_merge_launches", "fit_launches", "bus_launches",
-              "sam_launches", "dit_launches", "dit_sample_launches",
-              "sam_grad_launches")
+              "phase3_launches", "sam_launches", "dit_launches",
+              "dit_sample_launches", "sam_grad_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -2464,6 +2474,376 @@ def phase_lpips(results):
     results["lpips_ms"] = ms
 
 
+# phase 3 runs on the first 4 of the bus's 8 objects (by name): at 8 it took
+# 378 s on an H100, 302 s of it the vertex-colour bake (3.3-6.6 M faces an
+# object, every pixel of a 256² view against every face) and 68 s marching
+# and the clean-up, all on the host or the plain rasterizer (PERF.md §6)
+ASSET_OBJECTS = 4
+# phase_assets: phase 3 on the committed checkpoint. The flash shapes its
+# run gives the kernel, (B, H, Sq, Sk, D) at D = 32 over ASSET_OBJECTS
+# objects: the DiT's self- and cross-attention over the guided batch (2 × n
+# objects, 64 latent tokens and 64 image tokens); the condition encoder's
+# and the decoder trunk's self-attention (n objects, 64 tokens); a decoder
+# query chunk (8,192 points over the 64 latent tokens). Held and timed
+# beside the 11-shape forward sum, not in it, so the sum compares across
+# PRs.
+PHASE3_FLASH_SHAPES = [(2 * ASSET_OBJECTS, 8, 64, 64, 32),
+                       (ASSET_OBJECTS, 8, 64, 64, 32),
+                       (ASSET_OBJECTS, 8, 8192, 64, 32)]
+# the card against the CPU: 4 Euler steps, the dense decode at 32³, the
+# two-level decode at 64³ refining 256 of its 4,096 coarse cells
+ASSET_CHECK = dict(steps=4, dense=32, res=64, refine=256)
+# its limits on each stage's error against the CPU's f32, / max |f32|: the
+# max error within phase_scene's 5e-2 on the condition tokens and latents,
+# and within 8e-2 on the SDF stages, where bf16 alone departs further (the
+# bf16 LayerNorm output before the f32 sdf_out: an H100 read 6.0e-2,
+# 6.7e-2 and 5.2e-2 on the dense, coarse and fine stages, the CPU's own
+# bf16 5.2e-2, 5.7e-2 and 5.0e-2); the mean error within 1.5e-2 (the SDF
+# stages read 1.0-1.2e-2 on an H100 and in the CPU's bf16 alike) and within
+# ASSET_MEAN_OVER_BF16 times the CPU's own bf16 mean error on the same
+# input (the card read at most 1.04 times it). A query at the wrong point
+# must read over the mean limit.
+ASSET_MAX_ERR = dict(cond=5e-2, lat=5e-2, dense=8e-2, coarse=8e-2, fine=8e-2)
+ASSET_MEAN_ERR = 1.5e-2
+ASSET_MEAN_OVER_BF16 = 1.25
+
+
+def asset_crops(bus, prepped, n, margin=0.08):
+    """Phase 3's inputs from the bus's findings, standing in for phase 2's
+    prepare_for_3d (not ported) as it frames an object: for the first ``n``
+    objects by name (the floor left out), a square around the finding's
+    bounding box with ``margin`` of its longer side on each side, the input
+    image's pixels where the mask is (alpha 255) and white elsewhere (alpha
+    0), written as prepped/<finding stem>.png. Returns the stems."""
+    import os
+
+    import numpy as np
+
+    from regen3d_tpu_torch.artifacts import Artifacts, parse_finding_stem
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.utils.image import (
+        mask_bbox,
+        mask_from_finding,
+        read_png,
+        write_png,
+    )
+
+    art = Artifacts(default_config(str(bus / "output")))
+    image, _ = read_png(str(bus / "input.png"))
+    os.makedirs(prepped, exist_ok=True)
+    stems = [stem for stem in art.list_findings()
+             if parse_finding_stem(stem)[0] != "floor"][:n]
+    for stem in stems:
+        mask = mask_from_finding(os.path.join(art.findings_fullsize,
+                                              f"{stem}.png"))
+        x0, y0, x1, y1 = mask_bbox(mask)
+        m = mask[y0:y1, x0:x1, None]
+        rgba = np.concatenate([np.where(m, image[y0:y1, x0:x1, :3], 255),
+                               255 * m.astype(np.uint8)], -1)
+        h, w = rgba.shape[:2]
+        side = int(max(h, w) * (1 + 2 * margin))
+        square = np.zeros((side, side, 4), np.uint8)
+        square[..., :3] = 255
+        square[(side - h) // 2:(side - h) // 2 + h,
+               (side - w) // 2:(side - w) // 2 + w] = rgba
+        write_png(os.path.join(prepped, f"{stem}.png"), square)
+    return stems
+
+
+def asset_card_vs_cpu(imgs, dev="cuda"):
+    """The committed generator on ``dev`` (bf16, the flash kernel) and on
+    the CPU in bf16 and in f32 (the plain versions), the CPU's stages each
+    given the card's input to it: condition tokens from the same images,
+    ASSET_CHECK's Euler steps at guidance 5 from the same N(0, 1) latents (a
+    numpy seed), the dense and the two-level decode of the card's latents,
+    refined cells compared where the card and the f32 run both chose them
+    (on the coarse volume's scale). Returns ({stage: the card's (max, mean)
+    error against f32 / max |f32|}, the same for the CPU's bf16, the cells
+    chosen by both per object, the mean error of the card's dense volume
+    point-reflected, as a query mapped to -p would give it)."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.models import shapevae as sv
+    from regen3d_tpu_torch.models.dit import sample
+    from regen3d_tpu_torch.pipeline import phase3_assets as p3
+    from regen3d_tpu_torch.pipeline.shape_distill import (
+        build_generator,
+        load_params,
+    )
+
+    c = ASSET_CHECK
+    cfg, params = load_params(p3.default_shape_checkpoint())
+    lat0 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (imgs.shape[0], cfg.dit.latent_tokens,
+         cfg.dit.latent_dim)).astype(np.float32))
+    out = {}
+    with torch.no_grad():
+        for run, d, dt in (("card", dev, torch.bfloat16),
+                           ("bf16", "cpu", torch.bfloat16),
+                           ("f32", "cpu", torch.float32)):
+            g = build_generator(cfg.with_dtype(dt), params["cond"],
+                                params["dit"], params["dec"], device=d)
+            card = out.get("card", {})
+            given = lambda key, v: card.get(key, v).to(d)
+            cond = g.cond(imgs.to(d))
+            lat = sample(g.dit, given("cond", cond), num_steps=c["steps"],
+                         guidance_scale=5.0, latents=lat0.to(d))
+            dense = sv.decode_grid(g.decoder, given("lat", lat),
+                                   resolution=c["dense"], chunk=8192)
+            hier = sv.decode_grid_hierarchical(
+                g.decoder, given("lat", lat), resolution=c["res"],
+                chunk=8192, refine_cells=c["refine"])
+            out[run] = dict(zip(("cond", "lat", "dense", "coarse", "cells",
+                                 "fine"),
+                                (t.cpu() for t in (cond, lat, dense, *hier))))
+    ref = out["f32"]
+
+    def errors(got):
+        d = {k: ((got[k].float() - ref[k]).abs(), ref[k].abs().max())
+             for k in ("cond", "lat", "dense", "coarse")}
+        fine, common = [], []
+        for i in range(imgs.shape[0]):
+            both, ig, ir = np.intersect1d(got["cells"][i].numpy(),
+                                          ref["cells"][i].numpy(),
+                                          return_indices=True)
+            common.append(len(both))
+            fine.append((got["fine"][i][ig].float()
+                         - ref["fine"][i][ir]).abs().flatten())
+        d["fine"] = (torch.cat(fine), ref["coarse"].abs().max())
+        e = {k: (float(a.max() / m), float(a.mean() / m))
+             for k, (a, m) in d.items()}
+        return e, common
+
+    card, common = errors(out["card"])
+    # a query at the wrong point: the card's dense volume at -p
+    fault = float((out["card"]["dense"].float().flip(1, 2, 3)
+                   - ref["dense"]).abs().mean() / ref["dense"].abs().max())
+    return card, errors(out["bf16"])[0], common, fault
+
+
+def asset_run(cfg, n_obj, dev="cuda"):
+    """phase3_assets.run(cfg) on ``dev`` with every stage recorded by a
+    _CallSpy; returns (the generator it loaded, {stage: s}, the spies, total
+    s, launches)."""
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models import shapevae as sv
+    from regen3d_tpu_torch.pipeline import phase3_assets as p3
+
+    names = ("load_default_generator", "load_image_rgba", "resize_bilinear",
+             "dit_sample", "decode_grid_hierarchical", "assemble_volume",
+             "marching_tetrahedra", "extract_and_clean",
+             "vertex_colors_from_image", "save_glb")
+    saved = {n: getattr(p3, n) for n in names}
+    spies = {n: _CallSpy(f) for n, f in saved.items()}
+    spies["chunks"] = _CallSpy(sv._eval_point_chunks)
+    spies["cond"] = _CallSpy(p3.CondEncoder.forward)
+    forward = p3.CondEncoder.forward
+    try:
+        for n in names:
+            setattr(p3, n, spies[n])
+        sv._eval_point_chunks = spies["chunks"]
+        p3.CondEncoder.forward = lambda self, img: spies["cond"](self, img)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = p3.run(cfg, device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        for n, f in saved.items():
+            setattr(p3, n, f)
+        sv._eval_point_chunks = spies["chunks"].fn
+        p3.CondEncoder.forward = forward
+    s = lambda n: sum(call["s"] for call in spies[n].calls)
+    chunks = [call["s"] for call in spies["chunks"].calls]
+    stages = {
+        "checkpoint load": s("load_default_generator"),
+        # run resizes the n_obj condition images before the bake's shrinks
+        "image load and resize": s("load_image_rgba") + sum(
+            call["s"] for call in spies["resize_bilinear"].calls[:n_obj]),
+        "condition encoder": s("cond"),
+        "sampler": s("dit_sample"),
+        "coarse decode": chunks[0],
+        "fine decode": chunks[1],
+        "trunk and cell ranking": s("decode_grid_hierarchical") - sum(chunks),
+        "copy to host and assemble_volume": s("assemble_volume"),
+        "marching": s("marching_tetrahedra"),
+        "clean and largest component": s("extract_and_clean")
+        - s("marching_tetrahedra"),
+        "vertex colours": s("vertex_colors_from_image"),
+        "GLB write": s("save_glb"),
+    }
+    gen = spies["load_default_generator"].calls[0]["out"]
+    return gen, done, stages, spies, total, counts
+
+
+def asset_gates(cfg, stems, gen, done, spies, counts):
+    """The run's failed gates: a GLB per crop, each mesh finite and more
+    than the placeholder's 8 vertices (over 24), colours in [0, 1], the
+    latents' shape, and the flash kernel launched once per attention call:
+    the condition encoder's blocks, two per DiT block and step, the
+    decoder's trunk blocks and one per query chunk. Each mesh's size is
+    printed."""
+    import numpy as np
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.utils.glb import load_glb
+
+    art = Artifacts(cfg)
+    bad = []
+    if done != sorted(stems) or art.list_assets() != sorted(stems):
+        bad.append(f"assets {art.list_assets()} for {sorted(stems)}")
+    for name in art.list_assets():
+        m = load_glb(art.asset_glb(name)).meshes[0]
+        col = m.vertex_colors
+        log(f"  {name}: {len(m.vertices)} vertices, {len(m.faces)} faces")
+        if not (len(m.vertices) > 24 and np.isfinite(m.vertices).all()
+                and col is not None and 0 <= col.min() and col.max() <= 1):
+            bad.append(f"{name}: {len(m.vertices)} vertices, colours "
+                       f"{None if col is None else (col.min(), col.max())}")
+    kw = spies["decode_grid_hierarchical"].calls[0]["kwargs"]
+    c = kw["resolution"] // 4
+    points = (c ** 3, min(8 * c * c, c ** 3) * 4 ** 3)
+    steps = spies["dit_sample"].calls[0]["kwargs"]["num_steps"]
+    expected = (gen.cond.depth + 2 * steps * gen.dit_cfg.depth
+                + gen.vae_cfg.dec_depth
+                + sum(-(-p // kw["chunk"]) for p in points))
+    if counts["flash_fwd"] != expected:
+        bad.append(f"{counts['flash_fwd']} flash launches, {expected} "
+                   f"expected")
+    lat = spies["dit_sample"].calls[0]["out"]
+    if tuple(lat.shape) != (len(stems), gen.dit_cfg.latent_tokens,
+                            gen.dit_cfg.latent_dim):
+        bad.append(f"latents {tuple(lat.shape)}")
+    return bad, expected
+
+
+def asset_repeat(cfg, gen, spies, dev="cuda"):
+    """generate_sdf_batch again on the run's resized images from the run's
+    seed: bit for bit the run's volumes. If the run's generation took over
+    10 s, two calls at 128³ from one seed are compared instead. Returns
+    (resolution, s, the same)."""
+    import numpy as np
+    import torch
+
+    n_obj = len(spies["load_image_rgba"].calls)
+    imgs = torch.stack([call["out"][0] for call in
+                        spies["resize_bilinear"].calls[:n_obj]])
+    kw = spies["decode_grid_hierarchical"].calls[0]["kwargs"]
+    steps = spies["dit_sample"].calls[0]["kwargs"]["num_steps"]
+    guidance = spies["dit_sample"].calls[0]["kwargs"]["guidance_scale"]
+    t_gen = sum(call["s"] for n in ("cond", "dit_sample",
+                                    "decode_grid_hierarchical")
+                for call in spies[n].calls)
+    res = kw["resolution"] if t_gen <= 10 else 128
+    seed = int(cfg.get("seed", 1234567))
+    run = lambda: gen.generate_sdf_batch(
+        torch.Generator(device=dev).manual_seed(seed), imgs, steps, guidance,
+        res, kw["chunk"])
+    first = (spies["assemble_volume"].calls[0]["out"]
+             if res == kw["resolution"] else run())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = run()
+    dt = time.perf_counter() - t0
+    return res, dt, bool(np.array_equal(again, first))
+
+
+def phase_assets(results):
+    """Phase 3 on the committed checkpoint (checkpoints/shape_distilled.npz:
+    a condition encoder of width 256 and depth 2 on 64² RGBA, a shape DiT
+    of width 256 and depth 6 on 64 × 16 latents, an SDF decoder of width
+    256 with 4 trunk blocks). First asset_card_vs_cpu on two crops: each
+    stage's max and mean error against the CPU's f32 within ASSET_MAX_ERR,
+    ASSET_MEAN_ERR and ASSET_MEAN_OVER_BF16 times the CPU's bf16 error,
+    and the dense volume at -p over ASSET_MEAN_ERR. Then
+    phase3_assets.run at the defaults (50 Euler steps, guidance 5, the
+    two-level 256³ decode in chunks of 16000 → 8192) on RGBA crops of the
+    first ASSET_OBJECTS of phase_bus's objects (asset_crops) into a fresh
+    output root, every stage
+    timed (asset_run) and gated (asset_gates); a second generate_sdf_batch
+    from the same seed gives the run's volumes bit for bit (asset_repeat);
+    last, the flash kernel at phase 3's three shapes against its plain
+    version, timed beside SDPA (PHASE3_FLASH_SHAPES)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.models.layers import resize_bilinear
+    from regen3d_tpu_torch.utils.image import load_image_rgba
+
+    root = ROOT / "build" / "assets"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = default_config(str(root / "output"))
+    art = Artifacts(cfg)
+    stems = asset_crops(ROOT / "build" / "bus" / "bus", art.prepped_dir,
+                        ASSET_OBJECTS)
+
+    small = torch.cat([resize_bilinear(torch.from_numpy(load_image_rgba(
+        os.path.join(art.prepped_dir, f"{s}.png")).astype(np.float32)
+        / 255.0)[None], (64, 64)) for s in stems[:2]])
+    t0 = time.perf_counter()
+    card, bf16, common, fault = asset_card_vs_cpu(small)
+    c = ASSET_CHECK
+    fmt = lambda e: {k: f"{a:.3e}/{m:.3e}" for k, (a, m) in e.items()}
+    log(f"phase 3 generator against the CPU's f32 plain versions, each stage "
+        f"given the card's input, max/mean error / max |f32|: the card (bf16, "
+        f"kernels) {fmt(card)}, the CPU's bf16 {fmt(bf16)} (tol: max "
+        f"{ASSET_MAX_ERR}, mean {ASSET_MEAN_ERR} and "
+        f"{ASSET_MEAN_OVER_BF16}x the CPU's bf16); {c['steps']} steps, "
+        f"dense {c['dense']}³, two-level {c['res']}³ with {c['refine']} "
+        f"cells refined, {common} chosen by the card and f32 alike; the "
+        f"dense volume at -p, mean {fault:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    over = {k: e for k, e in card.items()
+            if e[0] > ASSET_MAX_ERR[k] or e[1] > ASSET_MEAN_ERR
+            or e[1] > ASSET_MEAN_OVER_BF16 * bf16[k][1]}
+    if over or fault <= ASSET_MEAN_ERR:
+        raise AssertionError(f"phase 3 generator: card vs CPU f32 {over}, "
+                             f"the volume at -p {fault:.3e}")
+
+    gen, done, stages, spies, total, counts = asset_run(cfg, len(stems))
+    # each spied call records its own peak
+    peak = max(call["peak"] for spy in spies.values()
+               for call in spy.calls) / 2 ** 30
+    results["phase3_launches"] = counts
+    log(f"phase 3 (phase3_assets.run at the defaults, {len(stems)} objects):"
+        f" {total:.2f} s; " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in stages.items())
+        + f" s; peak {peak:.2f} GiB; launches {counts}")
+    bad, expected = asset_gates(cfg, stems, gen, done, spies, counts)
+    if bad:
+        raise AssertionError(f"phase 3: {bad}")
+    log(f"phase 3: {counts['flash_fwd']} flash launches, as counted "
+        f"({expected})")
+
+    res, dt, same = asset_repeat(cfg, gen, spies)
+    log(f"phase 3 repeat: generate_sdf_batch at {res}³ from the same seed "
+        f"in {dt:.3f} s, the same volumes bit for bit: {same}")
+    if not same:
+        raise AssertionError("phase 3: a second generate_sdf_batch from the "
+                             "same seed gave other volumes")
+    del spies
+
+    gen_t = torch.Generator(device="cuda").manual_seed(5)
+    shapes = []
+    for shape in PHASE3_FLASH_SHAPES:
+        r = fwd_case(shape, gen_t)
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], r["err"])
+        shapes.append(dict(shape=shape, err=r["err"], bound_ms=r["bound"][0],
+                           bound_by=r["bound"][1], **r["ms"]))
+    results["flash_fwd"]["phase3_shapes"] = shapes
+
+
 def _scene_inputs(cfg, dev, k=8, seed=0):
     """bench.py's scene_step workload: 2 frames, 8 box masks, 512-vertex
     1024-face meshes."""
@@ -3601,6 +3981,7 @@ def main() -> int:
     phase_camera(results)
     phase_fit(results)
     phase_bus(results)
+    phase_assets(results)
     phase_lpips(results)
     phase_sam(results)
     phase_dit(results)

@@ -70,6 +70,32 @@ class Camera:
             image_size=(height, width))
 
 
+def lookat_camera(eye, target, image_hw: Tuple[int, int], focal_px: float,
+                  up=(0.0, 1.0, 0.0), znear: float = 0.1, zfar: float = 100.0,
+                  device="cuda") -> Camera:
+    """Camera at ``eye`` looking at ``target`` in f32: R's columns are the
+    view axes in the world, −x, −y and f, where f is the unit forward
+    direction, x = f × up normalised (or (1, 0, 0) where f is along ``up``)
+    and y = f × x: the OpenCV frame with x and y negated, which is the P3D
+    view frame the projection's signs assume. Principal point at the image
+    centre."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    eye, target, up = f32(eye), f32(target), f32(up)
+    f = target - eye
+    f = f / torch.clamp_min(torch.linalg.norm(f), 1e-12)
+    x_cam = torch.linalg.cross(f, up)
+    x_norm = torch.linalg.norm(x_cam)
+    x_cam = torch.where(x_norm > 1e-6,
+                        x_cam / torch.clamp_min(x_norm, 1e-12),
+                        f32([1.0, 0.0, 0.0]))
+    y_cam = torch.linalg.cross(f, x_cam)
+    R = torch.stack([-x_cam, -y_cam, f], -1)
+    h, w = image_hw
+    return Camera(R=R, T=-eye @ R, focal=f32([focal_px, focal_px]),
+                  principal=f32([w / 2.0, h / 2.0]), image_size=(h, w),
+                  znear=znear, zfar=zfar)
+
+
 def camera_from_npz(
     npz_path: str,
     render_hw: Optional[Tuple[int, int]] = None,

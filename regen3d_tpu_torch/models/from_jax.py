@@ -3,22 +3,28 @@ state dicts: ``regen3d_tpu.models.vggt.VGGT`` → :class:`~regen3d_tpu_torch.
 models.vggt.VGGT`, ``regen3d_tpu.models.sam.SAM`` →
 :class:`~regen3d_tpu_torch.models.sam.SAM` and
 ``regen3d_tpu.models.dit.ShapeDiT`` →
-:class:`~regen3d_tpu_torch.models.dit.ShapeDiT` and
+:class:`~regen3d_tpu_torch.models.dit.ShapeDiT`,
 ``regen3d_tpu.models.lpips.LPIPS`` →
-:class:`~regen3d_tpu_torch.models.lpips.LPIPS`.
+:class:`~regen3d_tpu_torch.models.lpips.LPIPS`, and phase 3's generator:
+``regen3d_tpu.pipeline.phase3_assets.CondEncoder`` →
+:class:`~regen3d_tpu_torch.pipeline.phase3_assets.CondEncoder` and
+``regen3d_tpu.models.shapevae.{ShapeEncoder,ShapeDecoder}`` →
+:mod:`regen3d_tpu_torch.models.shapevae`.
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
 
 * ``Dense.kernel (in, out)`` → ``Linear.weight (out, in)``;
-* ``Conv.kernel (H, W, I, O)`` → ``Conv2d.weight (O, I, H, W)``;
+* ``Conv.kernel (H, W, I, O)`` → ``Conv2d.weight (O, I, H, W)`` (the
+  condition encoder's ``patch/proj``: (8, 8, 4, 256) → (256, 4, 8, 8));
 * ``ConvTranspose.kernel (H, W, I, O)`` → ``ConvTranspose2d.weight
   (I, O, H, W)`` with the taps mirrored: flax does not flip the kernel,
   torch does (see ``layers.ConvTranspose``). Which 4-D kernels are
   transposed convolutions is named per model, since the shapes cannot tell
   (where I = O a Conv rule would load mirrored taps in silence);
 * ``LayerNorm.scale`` and ``RMSNorm.scale`` → ``weight``; every other leaf
-  (``bias``, ``latent_pos``, ``inst_gate{i}``, SAM's tables) keeps its name.
+  (``bias``, ``latent_pos``, ``latent_queries``, ``inst_gate{i}``, SAM's
+  tables) keeps its name.
 
 Takes numpy arrays (``jax.device_get`` of the tree) and imports no JAX.
 """
@@ -95,13 +101,9 @@ def load_sam_from_jax(model: torch.nn.Module, params: Mapping) -> None:
     model.load_state_dict(sam_state_from_jax(params), strict=True)
 
 
-def load_dit_from_jax(model: torch.nn.Module, params: Mapping) -> None:
-    """As :func:`load_vggt_from_jax`, for the shape DiT (the f32 leaves load
-    into its f32 parameters)."""
-    model.load_state_dict(state_from_jax(params), strict=True)
-
-
-def load_lpips_from_jax(model: torch.nn.Module, params: Mapping) -> None:
-    """As :func:`load_vggt_from_jax`, for LPIPS (its trunk and its five
-    1×1 heads are convolutions)."""
+def load_from_jax(model: torch.nn.Module, params: Mapping) -> None:
+    """As :func:`load_vggt_from_jax`, for a model without transposed
+    convolutions: the shape DiT, LPIPS (its trunk and its five 1×1 heads are
+    convolutions), and phase 3's condition encoder and shape VAE (f32 leaves
+    load into f32 parameters)."""
     model.load_state_dict(state_from_jax(params), strict=True)

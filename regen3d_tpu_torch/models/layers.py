@@ -8,7 +8,8 @@ The modules follow flax's numerics, which the JAX package runs:
   rounding, while training keeps flax's layout (``param_dtype`` f32, bf16
   compute), since bf16 keeps 8 significant bits and an AdamW update smaller
   than 2⁻⁸ of a weight would round away. ``Conv`` computes in its weights'
-  dtype;
+  dtype, or, given ``param_dtype``, stores them in it and computes in
+  ``dtype`` as ``Dense`` does;
 * ``RMSNorm`` is flax's: eps 1e-6, f32 statistics and scale, output in
   ``dtype``;
 * ``LayerNorm`` uses eps 1e-6 (torch's default is 1e-5), computes in f32 with
@@ -52,21 +53,27 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """flax ``nn.Conv`` with ``SAME`` padding on NHWC tensors."""
+    """flax ``nn.Conv`` with ``SAME`` padding on NHWC tensors. With
+    ``param_dtype`` the weights are stored in it and cast to ``dtype`` for
+    the product, as flax does; without it they are stored in ``dtype``."""
 
     def __init__(self, c_in, c_out, kernel, stride=1, bias=True,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", param_dtype=None):
         if stride == 1 and kernel % 2 == 0:
             raise ValueError("SAME padding of an even kernel is asymmetric")
         pad = (kernel - 1) // 2 if stride == 1 else 0
         super().__init__(c_in, c_out, kernel, stride=stride, padding=pad,
-                         bias=bias, dtype=dtype, device=device)
+                         bias=bias, dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype if param_dtype is not None else None
 
     def forward(self, x):                       # (B, H, W, C)
         if self.stride[0] > 1 and (x.shape[1] % self.stride[0]
                                    or x.shape[2] % self.stride[1]):
             raise ValueError("strided SAME conv needs a divisible input")
-        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        dt = self.compute_dtype or self.weight.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        y = self._conv_forward(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), b)
         return y.permute(0, 2, 3, 1)
 
 
@@ -199,6 +206,32 @@ class Attention(nn.Module):
         return self.proj(o.transpose(1, 2).reshape(b, sq, e))
 
 
+class TransformerBlock(nn.Module):
+    """Pre-norm block: self-attention, an optional cross-attention to
+    ``cond`` (``norm_cross``, ``cross``), then an MLP; LayerNorms in
+    ``dtype`` (norm1/attn/norm_cross/cross/norm2/mlp)."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, use_cross=False,
+                 dtype=torch.float32, device="cuda", param_dtype=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.attn = Attention(dim, num_heads, **kw)
+        if use_cross:
+            self.norm_cross = LayerNorm(dim, dtype=dtype, device=device)
+            self.cross = Attention(dim, num_heads, **kw)
+        else:
+            self.cross = None
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
+
+    def forward(self, x, cond=None):
+        x = x + self.attn(self.norm1(x))
+        if self.cross is not None:
+            x = x + self.cross(self.norm_cross(x), cond)
+        return x + self.mlp(self.norm2(x))
+
+
 class ViTBlock(nn.Module):
     """Pre-norm ViT block, optional LayerScale (norm1/attn/ls1/norm2/mlp/ls2)."""
 
@@ -280,10 +313,10 @@ class PatchEmbed(nn.Module):
     """Image (B, H, W, C) → patch tokens (B, h·w, width) by a strided conv."""
 
     def __init__(self, patch, width, in_ch=3, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", param_dtype=None):
         super().__init__()
         self.proj = Conv(in_ch, width, patch, stride=patch, dtype=dtype,
-                         device=device)
+                         device=device, param_dtype=param_dtype)
 
     def forward(self, img):
         x = self.proj(img)
@@ -306,6 +339,19 @@ def posemb_sincos_2d(h: int, w: int, dim: int, device=None) -> torch.Tensor:
     if out.shape[-1] < dim:
         out = F.pad(out, (0, dim - out.shape[-1]))
     return out
+
+
+def fourier_features(x: torch.Tensor, num_freqs: int = 8,
+                     include_input: bool = True) -> torch.Tensor:
+    """3D points (..., 3) → NeRF-style Fourier features (..., 3 + 6·F):
+    sin and cos of x·2ᵏπ (k < F, computed in x's dtype), interleaved per
+    frequency as [sin xyz, cos xyz], after x itself."""
+    freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype,
+                                device=x.device) * math.pi
+    ang = x[..., None, :] * freqs[:, None]                 # (..., F, 3)
+    enc = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+    enc = enc.reshape(*x.shape[:-1], -1)
+    return torch.cat([x, enc], -1) if include_input else enc
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

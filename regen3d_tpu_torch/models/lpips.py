@@ -5,7 +5,7 @@ reference's ``lpips.LPIPS(net='alex')``, run_eval.py:174-197).
 Takes NHWC images in [0, 1] as the JAX module does and runs NCHW inside;
 the trunk's max pools take no padding (flax's ``VALID``), each ``lin{i}`` is
 a 1×1 convolution without bias. Convolutions run without TF32. Weights load
-from the JAX package's tree with ``models/from_jax.load_lpips_from_jax``;
+from the JAX package's tree with ``models/from_jax.load_from_jax``;
 at random init the metric is still a deep-feature distance.
 """
 

@@ -61,16 +61,19 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def marching_tetrahedra(sdf: np.ndarray, iso: float = 0.0
+def marching_tetrahedra(sdf: np.ndarray, iso: float = 0.0,
+                        bounds: Optional[Tuple[float, float]] = None
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Extract the iso-surface of a dense SDF volume.
 
     Args:
       sdf: (nz, ny, nx) float volume, z-major (decode_grid layout).
       iso: iso value (inside = sdf < iso).
+      bounds: optional (lo, hi) world extent of the grid on every axis: the
+        vertices are rescaled from grid units as the JAX module does it, an
+        f32 scale (hi − lo)/(n − 1) per axis, then ``verts * scale + lo``.
 
-    Returns (verts (V, 3) float32 in xyz order and grid units, faces (T, 3)
-    int32).
+    Returns (verts (V, 3) float32 in xyz order, faces (T, 3) int32).
     """
     sdf = np.ascontiguousarray(sdf, dtype=np.float32)
     nz, ny, nx = sdf.shape
@@ -88,6 +91,12 @@ def marching_tetrahedra(sdf: np.ndarray, iso: float = 0.0
                          tris.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     finally:
         lib.mt_free(h)
+    if bounds is not None and len(verts):
+        lo, hi = bounds
+        scale = np.asarray([(hi - lo) / max(nx - 1, 1),
+                            (hi - lo) / max(ny - 1, 1),
+                            (hi - lo) / max(nz - 1, 1)], np.float32)
+        verts = verts * scale + np.float32(lo)
     return verts, tris
 
 

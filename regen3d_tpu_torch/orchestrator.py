@@ -3,10 +3,12 @@
 
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
-card (``cuda``, the default) or ``cpu``. Phases 4, 5, 6, 7 and 9 are
-ported; asking for any other raises before anything runs. Phase 4 needs a
-VGGT model object, which no checkpoint reader supplies yet: called from
-the CLI it raises as the JAX package's does.
+card (``cuda``, the default) or ``cpu``. Phases 3, 4, 5, 6, 7 and 9 are
+ported; asking for any other raises before anything runs. Phase 3 loads
+``checkpoints/shape_distilled.npz`` unless ``shape_checkpoint`` names
+another generator. Phase 4 needs a VGGT model object, which no checkpoint
+reader supplies yet: called from the CLI it raises as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ from typing import Dict, List, Optional
 from regen3d_tpu_torch.config import Config, load_config
 
 log = logging.getLogger(__name__)
+
+
+def _phase3(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import phase3_assets
+    phase3_assets.run(cfg, device=device)
 
 
 def _phase4(cfg: Config, device) -> None:
@@ -54,7 +61,7 @@ def _phase9(cfg: Config, device) -> None:
 PHASES: Dict[int, tuple] = {
     1: ("segmentation (detector + SAM → findings)", None),
     2: ("generative inpainting (amodal + empty room)", None),
-    3: ("image → 3D assets (flow-matching DiT)", None),
+    3: ("image → 3D assets (flow-matching DiT)", _phase3),
     4: ("camera + point cloud (VGGT)", _phase4),
     5: ("per-object cloud extraction", _phase5),
     6: ("differentiable-rendering pose fit", _phase6),

@@ -1,6 +1,6 @@
 """Host-side image utilities of the port: PNG IO, ``load_image_rgb``, mask
 ops, nearest and LANCZOS resizes, GIF (counterpart of the phase-5, 6, 7 and
-9 subset of regen3d_tpu/utils/image.py).
+9 subset of regen3d_tpu/utils/image.py), and phase 3's RGBA load.
 
 The GPU machine this port runs on has neither PIL nor OpenCV, so PNG files
 go through a small codec on ``zlib`` and ``struct``:
@@ -265,6 +265,17 @@ def load_image_rgb(path: str, max_side: Optional[int] = 1280) -> np.ndarray:
         scale = max_side / max(w, h)
         rgb = resize_lanczos(rgb, (round(h * scale), round(w * scale)))
     return np.ascontiguousarray(rgb)
+
+
+def load_image_rgba(path: str) -> np.ndarray:
+    """A PNG → RGBA uint8 (H, W, 4), as PIL's ``convert("RGBA")`` gives it:
+    grey replicated into R, G and B, and an opaque alpha (255) where the
+    file has none."""
+    img, mode = read_png(path)
+    rgb = _to_rgb(img, mode)
+    alpha = (img[..., -1:] if mode in ("RGBA", "LA")
+             else np.full(img.shape[:2] + (1,), 255, np.uint8))
+    return np.ascontiguousarray(np.concatenate([rgb, alpha], -1))
 
 
 def save_image(path: str, arr: np.ndarray) -> None:

@@ -31,7 +31,7 @@ import torch
 from regen3d_tpu.models import dit as jd
 from regen3d_tpu.parallel import train as jt
 from regen3d_tpu_torch.models import dit as td
-from regen3d_tpu_torch.models.from_jax import load_dit_from_jax, state_from_jax
+from regen3d_tpu_torch.models.from_jax import load_from_jax, state_from_jax
 from regen3d_tpu_torch.parallel import train as tt
 from test_torch_package import one_torch_thread  # noqa: F401
 
@@ -70,7 +70,7 @@ def port_dit(params, cross_instance):
     tc = dataclasses.replace(td.DiTConfig.tiny(), dtype=torch.float32,
                              cross_instance=cross_instance)
     model = td.ShapeDiT(tc, device="cpu")
-    load_dit_from_jax(model, params)
+    load_from_jax(model, params)
     return model
 
 
@@ -140,7 +140,7 @@ def test_weight_bridge_uses_every_leaf_once(ci_pair):
                                   params["params"]["inst_gate1"])
     params["params"]["block1"]["stray"] = np.zeros(3, np.float32)
     with pytest.raises(RuntimeError, match="stray"):
-        load_dit_from_jax(model, params)
+        load_from_jax(model, params)
 
 
 def test_forward_matches_jax_with_cross_instance(ci_pair):

@@ -41,7 +41,7 @@ from regen3d_tpu.utils import evalstore as jevalstore
 from regen3d_tpu.utils import image as jimage
 from regen3d_tpu_torch.camera import Camera
 from regen3d_tpu_torch.config import default_config
-from regen3d_tpu_torch.models.from_jax import load_lpips_from_jax
+from regen3d_tpu_torch.models.from_jax import load_from_jax
 from regen3d_tpu_torch.models.lpips import LPIPS, init_flax_style_, make_lpips_fn
 from regen3d_tpu_torch.ops import filters as tfilters
 from regen3d_tpu_torch.ops import icp as ticp
@@ -287,7 +287,7 @@ def test_lpips_matches_jax_and_its_fixture():
                                                 jnp.asarray(d["input_x"]),
                                                 jnp.asarray(d["input_x2"])))
     port = LPIPS(device="cpu")
-    load_lpips_from_jax(port, params)
+    load_from_jax(port, params)
     fn = make_lpips_fn(port)
     assert float(fn(T(d["input_x"]), T(d["input_x2"]))) == pytest.approx(
         float(d["expected_y"]), abs=1e-6)

@@ -59,6 +59,9 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.utils.colmapio", "regen3d_tpu_torch.ops.tracks",
     "regen3d_tpu_torch.ops.bundle_adjust",
     "regen3d_tpu_torch.pipeline.phase4_camera",
+    "regen3d_tpu_torch.models.shapevae",
+    "regen3d_tpu_torch.pipeline.phase3_assets",
+    "regen3d_tpu_torch.pipeline.shape_distill",
 ]
 
 
