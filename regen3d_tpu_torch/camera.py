@@ -58,6 +58,17 @@ class Camera:
         v = self.principal[1] - self.focal[1] * points_view[..., 1] / z_safe
         return torch.stack([u, v, z], dim=-1)
 
+    def pixel_rays_world(self, xx: torch.Tensor, yy: torch.Tensor
+                         ) -> torch.Tensor:
+        """Unit world-space directions (..., 3) of the rays through pixel
+        positions (xx, yy): the inverse of the pinhole on the z = 1 view
+        plane, rotated to the world (environment-map backgrounds)."""
+        x = (self.principal[0] - xx) / self.focal[0]
+        y = (self.principal[1] - yy) / self.focal[1]
+        d = torch.stack([x, y, torch.ones_like(x)], dim=-1) @ self.R.T
+        return d / torch.clamp_min(torch.linalg.norm(d, dim=-1, keepdim=True),
+                                   1e-8)
+
     def rescaled(self, height: int, width: int) -> "Camera":
         """Camera for another render resolution: focal scales by the height
         ratio, the principal point recentres on the new image."""

@@ -12,9 +12,15 @@ spans [-1, 1]), so sigma values carry over from the reference.
 * :func:`soft_silhouette_edge` is the tile-binned min-edge formulation in
   plain PyTorch; ``ops/silhouette_kernel.py`` runs the same binned tiles
   through the CUDA kernels.
+* :func:`soft_silhouette_binned` is the exact SoftRas per 64² tile over
+  the tile's top-K overlapping faces (the fit's ``use_binned_raster``).
 * :func:`rasterize_hard` is the non-differentiable z-buffer (phase 6's fit
-  GIFs, phase 8), with :func:`interpolate_attributes` and
-  :func:`phong_shade` on its fragments.
+  GIFs, the bakes), with :func:`interpolate_attributes` and
+  :func:`phong_shade` on its fragments; :func:`rasterize_hard_binned` is
+  the same z-buffer per tile over the tile's overlapping faces, and
+  :func:`rasterize_hard_auto` picks between them by the JAX package's rule
+  (:func:`hard_raster_path`; phase 8's renders).
+* :func:`render_points_soft` splats a point cloud (phase 8's debug renders).
 """
 
 from __future__ import annotations
@@ -94,8 +100,8 @@ def _barycentric(e0, e1, e2, area):
 
 def _face_coverage(pix: torch.Tensor, tri: torch.Tensor):
     """Signed squared distance (negative inside) and inside mask for every
-    (pixel, face): pix (P, 2), tri (..., C, 3, 2) → (..., P, C) each."""
-    p = pix[:, None, :]                                   # (P, 1, 2)
+    (pixel, face): pix (..., P, 2), tri (..., C, 3, 2) → (..., P, C) each."""
+    p = pix[..., :, None, :]                              # (..., P, 1, 2)
     v0 = tri[..., None, :, 0, :]                          # (..., 1, C, 2)
     v1 = tri[..., None, :, 1, :]
     v2 = tri[..., None, :, 2, :]
@@ -233,9 +239,44 @@ def soft_silhouette_edge(
                        sel_valid[:, t0:t0 + tiles_per_step],
                        tile_off[t0:t0 + tiles_per_step], use_reentrant=False)
             for t0 in range(0, n_tiles, tiles_per_step)]
-    acc = torch.cat(accs, 1)                               # (B, T, P)
-    alpha = (1.0 - torch.exp(acc)).reshape(-1, nty, ntx, tile, tile)
-    return alpha.permute(0, 1, 3, 2, 4).reshape(-1, h, w)
+    acc = _untile(torch.cat(accs, 1), image_hw, tile)      # (B, H·W)
+    return (1.0 - torch.exp(acc)).reshape(-1, h, w)
+
+
+def _tile_overlap(tri: torch.Tensor, ok: torch.Tensor,
+                  image_hw: Tuple[int, int], tile: int, pad) -> torch.Tensor:
+    """Which faces' screen bounding boxes, grown by ``pad`` pixels, overlap
+    each ``tile``² tile: tri (B, F, 3, ≥2) screen corners, ok (B, F) →
+    (B, T, F) bool, tiles in row-major order. Faces not ok overlap none."""
+    h, w = image_hw
+    dev = tri.device
+    uv = tri[..., :2]
+    big = torch.tensor(1e9, dtype=uv.dtype, device=dev)
+    lo = torch.where(ok[..., None], uv.min(2).values - pad, big)
+    hi = torch.where(ok[..., None], uv.max(2).values + pad, -big)
+    nty, ntx = h // tile, w // tile
+    ty = torch.arange(nty, device=dev) * tile
+    tx = torch.arange(ntx, device=dev) * tile
+    ov_x = ((lo[:, None, :, 0] < (tx[:, None] + tile))
+            & (hi[:, None, :, 0] > tx[:, None]))          # (B, ntx, F)
+    ov_y = ((lo[:, None, :, 1] < (ty[:, None] + tile))
+            & (hi[:, None, :, 1] > ty[:, None]))          # (B, nty, F)
+    return (ov_y[:, :, None, :] & ov_x[:, None, :, :]).reshape(
+        tri.shape[0], nty * ntx, -1)
+
+
+def _top_overlapping(overlap: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``k`` overlapping faces of each tile by index →
+    (idx (B, T, k) int32, valid (B, T, k) bool).
+
+    ``lax.top_k`` puts the lowest index first among equal scores, and the
+    overlap scores are 0/1, so almost everything ties: a stable descending
+    sort keeps exactly the lowest-index overlapping faces, as JAX does
+    (``torch.topk`` promises no order among ties)."""
+    score, idx = torch.sort(overlap.to(torch.uint8), dim=-1, descending=True,
+                            stable=True)
+    return idx[..., :k].int(), score[..., :k] > 0
 
 
 def compute_silhouette_bins(
@@ -249,39 +290,82 @@ def compute_silhouette_bins(
     faces_per_tile: int = 128,
     margin_px: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-K overlapping faces per image tile → (sel_idx, valid), (B, T, K).
-
-    ``lax.top_k`` puts the lowest index first among equal scores, and the
-    overlap scores are 0/1, so almost everything ties: a stable descending
-    sort keeps exactly the lowest-index overlapping faces, as JAX does
-    (``torch.topk`` promises no order among ties)."""
+    """Top-K overlapping faces per image tile → (sel_idx, valid), (B, T, K):
+    the face bounding boxes grown by the sigma falloff, a pixel and
+    ``margin_px``, the lowest-index faces first."""
     h, w = image_hw
     ndc = 2.0 / min(h, w)
-    f = faces.shape[1]
-    k = min(faces_per_tile, f)
-    dev = verts_screen.device
+    k = min(faces_per_tile, faces.shape[1])
     with torch.no_grad():
         tri = gather_faces(verts_screen, faces)
         ok = _faces_mask(faces, faces_mask) & torch.all(tri[..., 2] > znear, -1)
         # f32 arithmetic throughout, as the JAX function rounds it
         pad_px = (torch.sqrt(torch.tensor(sigma * 20.0, dtype=torch.float32,
-                                          device=dev)) / ndc + 1.0 + margin_px)
-        uv = tri[..., :2]
-        big = torch.tensor(1e9, dtype=uv.dtype, device=dev)
-        lo = torch.where(ok[..., None], uv.min(2).values - pad_px, big)
-        hi = torch.where(ok[..., None], uv.max(2).values + pad_px, -big)
-        nty, ntx = h // tile, w // tile
-        ty = torch.arange(nty, device=dev) * tile
-        tx = torch.arange(ntx, device=dev) * tile
-        ov_x = ((lo[:, None, :, 0] < (tx[:, None] + tile))
-                & (hi[:, None, :, 0] > tx[:, None]))          # (B, ntx, F)
-        ov_y = ((lo[:, None, :, 1] < (ty[:, None] + tile))
-                & (hi[:, None, :, 1] > ty[:, None]))          # (B, nty, F)
-        overlap = (ov_y[:, :, None, :] & ov_x[:, None, :, :]).reshape(
-            -1, nty * ntx, f)
-        score, idx = torch.sort(overlap.float(), dim=-1, descending=True,
-                                stable=True)
-        return idx[..., :k].int(), score[..., :k] > 0.5
+                                          device=tri.device)) / ndc
+                  + 1.0 + margin_px)
+        return _top_overlapping(_tile_overlap(tri, ok, image_hw, tile, pad_px),
+                                k)
+
+
+def _tile_pixels(image_hw: Tuple[int, int], tile: int, device
+                 ) -> torch.Tensor:
+    """The pixel centres of each ``tile``² tile, (T, tile², 2), tiles and
+    the pixels in each in row-major order: the dense grid's own values."""
+    h, w = image_hw
+    pix = _pixel_grid(h, w, device).reshape(h // tile, tile, w // tile, tile, 2)
+    return pix.permute(0, 2, 1, 3, 4).reshape(-1, tile * tile, 2)
+
+
+def _untile(x: torch.Tensor, image_hw: Tuple[int, int], tile: int
+            ) -> torch.Tensor:
+    """(B, T, tile², ...) per-tile values → (B, H·W, ...) in image order."""
+    h, w = image_hw
+    nty, ntx = h // tile, w // tile
+    rest = x.shape[3:]
+    x = x.reshape(x.shape[0], nty, ntx, tile, tile, *rest)
+    return x.transpose(2, 3).reshape(x.shape[0], h * w, *rest)
+
+
+def soft_silhouette_binned(
+    verts_screen: torch.Tensor,
+    faces: torch.Tensor,
+    image_hw: Tuple[int, int],
+    sigma: float = 5e-7,
+    faces_mask: Optional[torch.Tensor] = None,
+    znear: float = 1e-3,
+    tile: int = 64,
+    faces_per_tile: int = 256,
+    tiles_per_step: int = 8,
+) -> torch.Tensor:
+    """Tile-binned exact SoftRas silhouette → alpha (B, H, W): each ``tile``²
+    tile sums log(1 − sigmoid(−signed/σ)) over its top-K overlapping faces
+    (:func:`compute_silhouette_bins` without a margin), which equals
+    :func:`soft_silhouette` where K covers every overlapping face. Each step
+    of ``tiles_per_step`` tiles is checkpointed, so backward recomputes its
+    (pixels × K) planes instead of storing them."""
+    h, w = image_hw
+    assert h % tile == 0 and w % tile == 0, "image must be tile-aligned"
+    ndc = 2.0 / min(h, w)
+    sel_idx, sel_valid = compute_silhouette_bins(
+        verts_screen, faces, image_hw, sigma, faces_mask, znear, tile,
+        faces_per_tile)
+    tri2 = gather_faces(verts_screen, faces)[..., :2] * ndc   # (B, F, 3, 2)
+    pix = _tile_pixels(image_hw, tile, verts_screen.device) * ndc
+
+    def step(idxs, valids, pix_s):
+        signed, _ = _face_coverage(pix_s, gather_rows(tri2, idxs))
+        contrib = -F.softplus(-signed / sigma)               # (B, S, P, K)
+        contrib = torch.where(valids[:, :, None, :], contrib,
+                              torch.zeros_like(contrib))
+        return contrib.sum(-1)
+
+    n_tiles = pix.shape[0]
+    accs = [checkpoint(step, sel_idx[:, t0:t0 + tiles_per_step],
+                       sel_valid[:, t0:t0 + tiles_per_step],
+                       pix[t0:t0 + tiles_per_step], use_reentrant=False)
+            for t0 in range(0, n_tiles, tiles_per_step)]
+    acc = _untile(torch.cat(accs, 1), image_hw, tile)
+    return (1.0 - torch.exp(acc)).reshape(-1, h, w)
 
 
 _BIG = 1e30
@@ -295,6 +379,35 @@ class Fragments(NamedTuple):
     depth: torch.Tensor     # (B, H, W) view-space z (+inf = background)
 
 
+def _hard_pairs(p, tri, ok):
+    """The perspective-correct depth of every (pixel, face) pair, _BIG where
+    the face does not cover the pixel or is not ok: p (..., P, 1, 2), tri
+    (..., 1, C, 3, 3), ok (..., 1, C) → (..., P, C). The dense and the
+    binned z-buffers both call it, so a pair's depth is the same float on
+    either path; 1/z's three terms are added left to right, as the JAX
+    package's reduction adds them."""
+    v = [tri[..., j, :2] for j in range(3)]
+    e0, e1, e2, area = _edge_functions(p, *v)
+    denom = torch.where(area.abs() < 1e-12, torch.full_like(area, 1e-12), area)
+    # 1/z interpolates linearly on screen
+    inv_z = (e1 / denom / tri[..., 0, 2] + e2 / denom / tri[..., 1, 2]
+             + e0 / denom / tri[..., 2, 2])
+    zpix = 1.0 / torch.clamp_min(inv_z, 1e-12)
+    covered = _inside(e0, e1, e2, area) & ok
+    return torch.where(covered, zpix, torch.full_like(zpix, _BIG))
+
+
+def _fold_min(zpix, ids, best_z, best_i):
+    """Fold one chunk's (..., C) depths, their face ids (..., C) or the
+    chunk's first id, into the running z-buffer: the first index among
+    equal depths in the chunk, the earlier chunk on a tie across chunks."""
+    zmin, imin = zpix.min(-1)
+    fid = (imin.int() + ids if not torch.is_tensor(ids)
+           else torch.gather(ids, -1, imin[..., None])[..., 0])
+    take = zmin < best_z
+    return torch.where(take, zmin, best_z), torch.where(take, fid, best_i)
+
+
 def rasterize_hard(
     verts_screen: torch.Tensor,
     faces: torch.Tensor,
@@ -306,7 +419,7 @@ def rasterize_hard(
     """Non-differentiable z-buffer: for each pixel the nearest covering face
     (perspective-correct depth), the lowest face index among equal depths,
     as JAX's chunked argmin (first within a chunk, strict ``<`` across
-    chunks) gives it."""
+    chunks) gives it. Every pixel is tested against every face."""
     h, w = image_hw
     pix = _pixel_grid(h, w, verts_screen.device)
     p = pix[:, None, :]
@@ -320,22 +433,166 @@ def rasterize_hard(
     with torch.no_grad():
         for c0 in range(0, f, chunk):
             tri = tri3[:, c0:c0 + chunk]
-            zs = tri[..., 2]                              # (B, C, 3)
-            ok = fmask[:, c0:c0 + chunk] & torch.all(zs > znear, -1)
-            v = [tri[:, None, :, j, :2] for j in range(3)]  # (B, 1, C, 2)
-            e = _edge_functions(p, *v)
-            bary = _barycentric(*e)                       # (B, P, C, 3)
-            # perspective-correct depth: 1/z interpolates linearly on screen
-            inv_z = (bary / zs[:, None]).sum(-1)
-            zpix = 1.0 / torch.clamp_min(inv_z, 1e-12)
-            covered = _inside(*e) & ok[:, None, :]
-            zpix = torch.where(covered, zpix, torch.full_like(zpix, _BIG))
-            zmin, imin = zpix.min(-1)
-            take = zmin < best_z
-            best_z = torch.where(take, zmin, best_z)
-            best_i = torch.where(take, imin.int() + c0, best_i)
+            ok = fmask[:, c0:c0 + chunk] & torch.all(tri[..., 2] > znear, -1)
+            zpix = _hard_pairs(p, tri[:, None], ok[:, None, :])
+            best_z, best_i = _fold_min(zpix, c0, best_z, best_i)
         return _fragments_from_zbuffer(verts_screen, faces, best_z, best_i,
                                        image_hw)
+
+
+def _hard_overlap(verts_screen, faces, image_hw, faces_mask, znear, tile):
+    """(corners (B, F, 3, 3), tile overlap (B, T, F)) of the hard z-buffer's
+    binning: bounding boxes grown by one pixel; a masked face, or one with a
+    corner at or before ``znear``, overlaps no tile."""
+    tri = gather_faces(verts_screen, faces)
+    ok = _faces_mask(faces, faces_mask) & torch.all(tri[..., 2] > znear, -1)
+    return tri, _tile_overlap(tri, ok, image_hw, tile, 1.0)
+
+
+def _binned_zbuffer(verts_screen, faces, image_hw, tri, overlap, k, tile,
+                    tiles_per_step=8, chunk=512) -> Fragments:
+    """The binned z-buffer from _hard_overlap's corners and overlap, ``k``
+    candidates a tile."""
+    dev = verts_screen.device
+    sel_idx, sel_ok = _top_overlapping(overlap, k)                # (B, T, K)
+    pix = _tile_pixels(image_hw, tile, dev)                       # (T, P, 2)
+    b, n_tiles = sel_idx.shape[:2]
+    zs, ids = [], []
+    for t0 in range(0, n_tiles, tiles_per_step):
+        idx = sel_idx[:, t0:t0 + tiles_per_step]
+        p = pix[t0:t0 + tiles_per_step][None, :, :, None, :]
+        best_z = torch.full((b,) + p.shape[1:3], _BIG,
+                            dtype=verts_screen.dtype, device=dev)
+        best_i = torch.full_like(best_z, -1, dtype=torch.int32)
+        for c0 in range(0, k, chunk):
+            ic = idx[..., c0:c0 + chunk]                          # (B, S, C)
+            zpix = _hard_pairs(
+                p, gather_rows(tri, ic)[:, :, None],
+                sel_ok[:, t0:t0 + tiles_per_step, None, c0:c0 + chunk])
+            best_z, best_i = _fold_min(
+                zpix, ic[:, :, None, :].expand(zpix.shape), best_z, best_i)
+        zs.append(best_z)
+        ids.append(best_i)
+    z = _untile(torch.cat(zs, 1), image_hw, tile)
+    fid = _untile(torch.cat(ids, 1), image_hw, tile)
+    return _fragments_from_zbuffer(verts_screen, faces, z, fid, image_hw)
+
+
+def rasterize_hard_binned(
+    verts_screen: torch.Tensor,
+    faces: torch.Tensor,
+    image_hw: Tuple[int, int],
+    faces_mask: Optional[torch.Tensor] = None,
+    znear: float = 1e-3,
+    tile: int = 64,
+    faces_per_tile: int = 256,
+    tiles_per_step: int = 8,
+    chunk: int = 512,
+) -> Fragments:
+    """Tile-binned z-buffer: each ``tile``² tile tests its pixels against
+    only the first ``faces_per_tile`` faces (by index) whose bounding box,
+    grown by a pixel, overlaps it, ``chunk`` of them at a time over
+    ``tiles_per_step`` tiles. A pair's depth is computed as the dense path
+    computes it (:func:`_hard_pairs`) and the candidates are in ascending
+    index order, so where ``faces_per_tile`` ≥ :func:`max_faces_per_tile`
+    the fragments equal :func:`rasterize_hard`'s bit for bit."""
+    h, w = image_hw
+    assert h % tile == 0 and w % tile == 0, "image must be tile-aligned"
+    with torch.no_grad():
+        tri, overlap = _hard_overlap(verts_screen, faces, image_hw,
+                                     faces_mask, znear, tile)
+        return _binned_zbuffer(verts_screen, faces, image_hw, tri, overlap,
+                               min(faces_per_tile, faces.shape[1]), tile,
+                               tiles_per_step, chunk)
+
+
+def max_faces_per_tile(
+    verts_screen: torch.Tensor,
+    faces: torch.Tensor,
+    image_hw: Tuple[int, int],
+    faces_mask: Optional[torch.Tensor] = None,
+    znear: float = 1e-3,
+    tile: int = 64,
+) -> torch.Tensor:
+    """Each object's largest count of faces overlapping one tile, (B,): the
+    ``faces_per_tile`` that makes :func:`rasterize_hard_binned` lossless."""
+    with torch.no_grad():
+        overlap = _hard_overlap(verts_screen, faces, image_hw, faces_mask,
+                                znear, tile)[1]
+        return overlap.sum(-1, dtype=torch.int32).max(-1).values
+
+
+# the binned z-buffer's faces per tile: the smallest bucket ≥ the true
+# count is taken, and above the last the dense path runs
+_K_BUCKETS = (128, 256, 512, 1024, 2048)
+
+
+class RasterPath(NamedTuple):
+    """Which z-buffer :func:`rasterize_hard_auto` runs: ``path`` "dense" or
+    "binned", ``k`` the binned path's faces per tile (None when dense) and
+    ``kmax`` the measured per-tile maximum (None where it was not needed)."""
+
+    path: str
+    k: Optional[int]
+    kmax: Optional[int]
+
+
+def _dense_by_shape(image_hw, n_faces: int, tile: int) -> bool:
+    h, w = image_hw
+    return bool(h % tile or w % tile or n_faces <= 2 * _K_BUCKETS[0])
+
+
+def _path_for(kmax: int, n_faces: int) -> RasterPath:
+    k = next((b for b in _K_BUCKETS if b >= kmax), None)
+    if k is None or k >= n_faces:
+        return RasterPath("dense", None, kmax)
+    return RasterPath("binned", k, kmax)
+
+
+def hard_raster_path(
+    verts_screen: torch.Tensor,
+    faces: torch.Tensor,
+    image_hw: Tuple[int, int],
+    faces_mask: Optional[torch.Tensor] = None,
+    znear: float = 1e-3,
+    tile: int = 64,
+) -> RasterPath:
+    """The JAX package's dispatch rule: the dense z-buffer when the image is
+    not tile-aligned, when there are at most 2·128 faces, when the largest
+    per-tile overlap exceeds the last bucket (2048) or when its bucket is
+    not below the face count; else the binned path at that bucket. The
+    overlap is the largest over the batch."""
+    if _dense_by_shape(image_hw, faces.shape[1], tile):
+        return RasterPath("dense", None, None)
+    kmax = int(max_faces_per_tile(verts_screen, faces, image_hw, faces_mask,
+                                  znear, tile).max())
+    return _path_for(kmax, faces.shape[1])
+
+
+def rasterize_hard_auto(
+    verts_screen: torch.Tensor,
+    faces: torch.Tensor,
+    image_hw: Tuple[int, int],
+    faces_mask: Optional[torch.Tensor] = None,
+    znear: float = 1e-3,
+    chunk: int = 256,
+    tile: int = 64,
+) -> Fragments:
+    """:func:`rasterize_hard` or :func:`rasterize_hard_binned`, as
+    :func:`hard_raster_path` decides (it reads the overlap on the host); the
+    binned path reuses the overlap the decision counted."""
+    if not _dense_by_shape(image_hw, faces.shape[1], tile):
+        with torch.no_grad():
+            tri, overlap = _hard_overlap(verts_screen, faces, image_hw,
+                                         faces_mask, znear, tile)
+            path = _path_for(int(overlap.sum(-1, dtype=torch.int32).max()),
+                             faces.shape[1])
+            if path.path == "binned":
+                return _binned_zbuffer(verts_screen, faces, image_hw, tri,
+                                       overlap, path.k, tile)
+        del tri, overlap
+    return rasterize_hard(verts_screen, faces, image_hw, faces_mask, znear,
+                          chunk)
 
 
 def _fragments_from_zbuffer(verts_screen, faces, z, fid, image_hw
@@ -407,3 +664,55 @@ def phong_shade(
     bg = (frag.face_idx < 0)[..., None]
     return torch.clamp(torch.where(bg, torch.full_like(shaded, background),
                                    shaded), 0.0, 1.0)
+
+
+def render_points_soft(
+    points_screen: torch.Tensor,
+    image_hw: Tuple[int, int],
+    radius_px: float = 3.0,
+    colors: Optional[torch.Tensor] = None,
+    points_mask: Optional[torch.Tensor] = None,
+    chunk: int = 1024,
+    znear: float = 1e-3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Point splats (pytorch3d PointsRasterizer's role; reference
+    render_utils.py:122-140): points_screen (B, N, 3) → (rgb (B, H, W, 3),
+    alpha (B, H, W)). Each pixel takes the colour of the nearest point in z
+    whose disc of ``radius_px`` covers it (the first index on a tie, white
+    where none does), and alpha = 1 − Π(1 − cover) with cover = 1 − d²/r²
+    clipped below 1, summed as logs, ``chunk`` points at a time."""
+    h, w = image_hw
+    dev = points_screen.device
+    pix = _pixel_grid(h, w, dev)
+    b, n = points_screen.shape[:2]
+    chunk = min(chunk, n)
+    pmask = (torch.ones((b, n), dtype=torch.bool, device=dev)
+             if points_mask is None else points_mask.bool())
+    cols = (torch.full((b, n, 3), 0.5, dtype=points_screen.dtype, device=dev)
+            if colors is None else colors)
+    r2 = radius_px * radius_px
+    best_z = torch.full((b, h * w), _BIG, dtype=points_screen.dtype,
+                        device=dev)
+    best_rgb = torch.ones((b, h * w, 3), dtype=points_screen.dtype,
+                          device=dev)
+    acc = torch.zeros((b, h * w), dtype=points_screen.dtype, device=dev)
+    with torch.no_grad():
+        for c0 in range(0, n, chunk):
+            pc = points_screen[:, None, c0:c0 + chunk]        # (B, 1, C, 3)
+            dx = pix[:, None, 0] - pc[..., 0]
+            dy = pix[:, None, 1] - pc[..., 1]
+            d2 = dx * dx + dy * dy                            # (B, P, C)
+            hit = ((d2 <= r2) & pmask[:, None, c0:c0 + chunk]
+                   & (pc[..., 2] > znear))
+            z = torch.where(hit, pc[..., 2], torch.full_like(d2, _BIG))
+            zmin, imin = z.min(-1)
+            rgb = gather_rows(cols[:, c0:c0 + chunk], imin)
+            take = zmin < best_z
+            best_z = torch.where(take, zmin, best_z)
+            best_rgb = torch.where(take[..., None], rgb, best_rgb)
+            cover = torch.where(hit, 1.0 - d2 / r2, torch.zeros_like(d2))
+            acc = acc + torch.log1p(-torch.clamp_max(cover, 1 - 1e-6)).sum(-1)
+        alpha = 1.0 - torch.exp(acc)
+        rgb = torch.where((best_z < _BIG)[..., None], best_rgb,
+                          torch.ones_like(best_rgb))
+        return rgb.reshape(b, h, w, 3), alpha.reshape(b, h, w)

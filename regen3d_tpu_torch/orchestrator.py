@@ -3,12 +3,14 @@
 
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
-card (``cuda``, the default) or ``cpu``. Phases 3, 4, 5, 6, 7 and 9 are
-ported; asking for any other raises before anything runs. Phase 3 loads
+card (``cuda``, the default) or ``cpu``. Phases 2 to 9 are ported; asking
+for phase 1, 10 or 11 raises before anything runs. Phase 2 runs on the
+host (the offline inpainter without an API key). Phase 3 loads
 ``checkpoints/shape_distilled.npz`` unless ``shape_checkpoint`` names
 another generator. Phase 4 needs a VGGT model object, which no checkpoint
 reader supplies yet: called from the CLI it raises as the JAX package's
-does.
+does. Phase 8 renders in software on the device unless a ``blender``
+executable is on PATH.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ from typing import Dict, List, Optional
 from regen3d_tpu_torch.config import Config, load_config
 
 log = logging.getLogger(__name__)
+
+
+def _phase2(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import phase2_inpaint
+    phase2_inpaint.run(cfg)
 
 
 def _phase3(cfg: Config, device) -> None:
@@ -53,6 +60,11 @@ def _phase7(cfg: Config, device) -> None:
     phase7_assemble.run(cfg, device=device)
 
 
+def _phase8(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import phase8_render
+    phase8_render.run(cfg, device=device)
+
+
 def _phase9(cfg: Config, device) -> None:
     from regen3d_tpu_torch.pipeline import phase9_eval
     phase9_eval.run(cfg, device=device)
@@ -60,13 +72,13 @@ def _phase9(cfg: Config, device) -> None:
 
 PHASES: Dict[int, tuple] = {
     1: ("segmentation (detector + SAM → findings)", None),
-    2: ("generative inpainting (amodal + empty room)", None),
+    2: ("generative inpainting (amodal + empty room)", _phase2),
     3: ("image → 3D assets (flow-matching DiT)", _phase3),
     4: ("camera + point cloud (VGGT)", _phase4),
     5: ("per-object cloud extraction", _phase5),
     6: ("differentiable-rendering pose fit", _phase6),
     7: ("scene assembly + background mesh + ICP", _phase7),
-    8: ("rendering", None),
+    8: ("rendering", _phase8),
     9: ("evaluation", _phase9),
     10: ("MIDI-3D comparison baseline", None),
     11: ("DeepPriorAssembly comparison baseline", None),

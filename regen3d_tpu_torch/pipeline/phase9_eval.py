@@ -8,7 +8,7 @@ Hausdorff, P/R@0.01, Wasserstein) → 2D metrics
 timestamped evaluation dir with json/csv + comparison vs the previous run.
 
 The rendered image is resized to the input's size with LANCZOS as Pillow
-computes it (utils/image.resize_lanczos). LPIPS runs when the caller passes
+computes it (utils/image.resize_pil). LPIPS runs when the caller passes
 ``lpips_fn``; loading a converted ``lpips_checkpoint`` needs the orbax
 reader, not ported yet (ROADMAP Queue 1 item 1), and raises.
 """
@@ -25,7 +25,7 @@ from regen3d_tpu_torch.artifacts import Artifacts
 from regen3d_tpu_torch.config import Config
 from regen3d_tpu_torch.ops.metrics import evaluate_clouds, psnr, ssim
 from regen3d_tpu_torch.utils.evalstore import dump_evaluation
-from regen3d_tpu_torch.utils.image import load_image_rgb, resize_lanczos
+from regen3d_tpu_torch.utils.image import load_image_rgb, resize_pil
 from regen3d_tpu_torch.utils.ply import load_ply
 
 log = logging.getLogger(__name__)
@@ -73,7 +73,7 @@ def run(cfg: Config, lpips_fn=None, device="cuda") -> Dict[str, float]:
         pred_img = load_image_rgb(pred_img_path, max_side=None)
         ref_img = load_image_rgb(input_path, max_side=None)
         if pred_img.shape != ref_img.shape:
-            pred_img = resize_lanczos(pred_img, ref_img.shape[:2])
+            pred_img = resize_pil(pred_img, ref_img.shape[:2], "lanczos")
         p = torch.as_tensor(pred_img, dtype=torch.float32, device=device) / 255.0
         r = torch.as_tensor(ref_img, dtype=torch.float32, device=device) / 255.0
         metrics["psnr"] = float(psnr(p, r))

@@ -23,10 +23,14 @@ from regen3d_tpu_torch.camera import Camera
 from regen3d_tpu_torch.ops import full_f32
 from regen3d_tpu_torch.ops.knn import chamfer_loss
 from regen3d_tpu_torch.ops.losses import bbox_hinge_loss, silhouette_loss
-from regen3d_tpu_torch.ops.point_mesh import point_mesh_face_distance_fast
+from regen3d_tpu_torch.ops.point_mesh import (
+    point_mesh_face_distance_fast,
+    point_mesh_face_distance_topk,
+)
 from regen3d_tpu_torch.ops.rasterize import (
     compute_silhouette_bins,
     soft_silhouette,
+    soft_silhouette_binned,
     soft_silhouette_edge,
 )
 from regen3d_tpu_torch.ops.silhouette_kernel import soft_silhouette_edge_kernel
@@ -83,7 +87,7 @@ class FitConfig:
     face_chunk: int = 256
     point_chunk: int = 512
     record_history: bool = True
-    use_binned_raster: bool = False   # not ported: raises if it would run
+    use_binned_raster: bool = False
     bin_tile: int = 64
     faces_per_tile: int = 256
     use_edge_raster: bool = False
@@ -91,7 +95,7 @@ class FitConfig:
     # silhouette kernels (ops/silhouette_kernel.py): "auto" takes them on a
     # CUDA device at ≥512² with 32-px tiles; True forces, False disables
     use_pallas_raster: object = "auto"
-    pm_topk: int = 0                  # not ported: must be 0
+    pm_topk: int = 0
     object_chunk: int = 0
 
 
@@ -133,12 +137,14 @@ def _use_pallas(cfg: FitConfig, device: torch.device) -> bool:
 
 def raster_path(cfg: FitConfig, n_faces: int, device) -> str:
     """The silhouette the fit runs: "edge_kernel" (tile kernels), "edge"
-    (plain tile-binned edge path) or "streaming" (exact SoftRas)."""
+    (plain tile-binned edge path), "binned" (tile-binned exact SoftRas) or
+    "streaming" (exact SoftRas over every face), in the JAX package's order
+    of preference."""
     binned_ok = _binned_budget_ok(cfg, n_faces)
     if cfg.use_edge_raster and binned_ok:
         return "edge_kernel" if _use_pallas(cfg, device) else "edge"
     if cfg.use_binned_raster and binned_ok:
-        raise NotImplementedError("use_binned_raster is not ported")
+        return "binned"
     return "streaming"
 
 
@@ -146,8 +152,6 @@ def _objects_loss(v_world, verts_mask, faces, faces_mask, target_mask,
                   target_points, points_mask, bins, camera: Camera,
                   bbox_lo, bbox_hi, cfg: FitConfig) -> torch.Tensor:
     """Per-object losses (B,) for a group of objects."""
-    if cfg.pm_topk > 0:
-        raise NotImplementedError("pm_topk > 0 is not ported")
     vs = camera.view_to_screen(camera.world_to_view(v_world))
     path = raster_path(cfg, faces.shape[1], v_world.device)
     if path == "edge_kernel":
@@ -158,13 +162,22 @@ def _objects_loss(v_world, verts_mask, faces, faces_mask, target_mask,
         alpha = soft_silhouette_edge(
             vs, faces, cfg.image_hw, sigma=cfg.sigma, faces_mask=faces_mask,
             tile=cfg.bin_tile, faces_per_tile=cfg.faces_per_tile, bins=bins)
+    elif path == "binned":
+        alpha = soft_silhouette_binned(
+            vs, faces, cfg.image_hw, sigma=cfg.sigma, faces_mask=faces_mask,
+            tile=cfg.bin_tile, faces_per_tile=cfg.faces_per_tile)
     else:
         alpha = soft_silhouette(vs, faces, cfg.image_hw, sigma=cfg.sigma,
                                 faces_mask=faces_mask, chunk=cfg.face_chunk)
     l_sil = silhouette_loss(alpha, target_mask, use_focal=cfg.use_focal)
-    l_3d = point_mesh_face_distance_fast(v_world, faces, target_points,
-                                         points_mask, faces_mask,
-                                         cfg.point_chunk)
+    if cfg.pm_topk > 0:
+        l_3d = point_mesh_face_distance_topk(
+            v_world, faces, target_points, points_mask, faces_mask,
+            k=cfg.pm_topk, chunk=cfg.point_chunk)
+    else:
+        l_3d = point_mesh_face_distance_fast(v_world, faces, target_points,
+                                             points_mask, faces_mask,
+                                             cfg.point_chunk)
     l_box = bbox_hinge_loss(v_world, bbox_lo, bbox_hi, verts_mask)
     return cfg.w_sil * l_sil + cfg.w_3d * l_3d + cfg.w_bbox * l_box
 

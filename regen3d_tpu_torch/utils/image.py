@@ -1,6 +1,7 @@
 """Host-side image utilities of the port: PNG IO, ``load_image_rgb``, mask
-ops, nearest and LANCZOS resizes, GIF (counterpart of the phase-5, 6, 7 and
-9 subset of regen3d_tpu/utils/image.py), and phase 3's RGBA load.
+ops, nearest, BICUBIC and LANCZOS resizes, GIF, the Radiance HDR codec
+(counterpart of regen3d_tpu/utils/image.py's subset that phases 2, 3, 5-9
+use), and phase 3's RGBA load.
 
 The GPU machine this port runs on has neither PIL nor OpenCV, so PNG files
 go through a small codec on ``zlib`` and ``struct``:
@@ -14,8 +15,10 @@ Reading converts as PIL's ``convert`` does (ITU-R 601-2 luma in PIL's
 fixed point for RGB → L), and :func:`resize_nearest` reproduces PIL's
 ``Image.NEAREST`` index mapping, so masks come out bit for bit as the JAX
 package's. :func:`load_image_rgb` composites alpha over white
-(:func:`alpha_over_white`) and resizes with LANCZOS (:func:`resize_lanczos`)
-in Pillow's fixed-point arithmetic, bit for bit. Erosion and dilation are
+(:func:`alpha_over_white`) and resizes with LANCZOS (:func:`resize_pil`)
+in Pillow's fixed-point arithmetic, bit for bit; :func:`resize_pil` does
+the same for BICUBIC and for RGBA and LA images, which Pillow resizes
+premultiplied by alpha. Erosion and dilation are
 the JAX module's numpy branches, which it takes where OpenCV is absent.
 :func:`save_gif` needs PIL and imports it inside itself.
 """
@@ -43,6 +46,14 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 def write_png(path: str, arr: np.ndarray) -> None:
     """uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) → an 8-bit PNG."""
+    data = encode_png(arr)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) → 8-bit PNG bytes,
+    every row unfiltered."""
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
         raise TypeError(f"write_png takes uint8, got {arr.dtype}")
@@ -54,10 +65,9 @@ def write_png(path: str, arr: np.ndarray) -> None:
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(arr).reshape(h, w * c)], 1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(_PNG_SIG + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+    return (_PNG_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
 
 
 def _unfilter(raw: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
@@ -97,6 +107,38 @@ def read_png(path: str) -> Tuple[np.ndarray, str]:
         buf = f.read()
     if buf[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
+    return _decode_png(buf, path)
+
+
+# leading bytes of the formats a texture or an image API may carry
+_SIGNATURES = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+               (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+               (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"))
+
+
+def image_format(data: bytes) -> str:
+    """The name of the image format ``data`` starts with ("PNG", "JPEG",
+    "WebP", ...; "unknown" when none matches)."""
+    if data[:8] == _PNG_SIG:
+        return "PNG"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((name for sig, name in _SIGNATURES if data.startswith(sig)),
+                "unknown")
+
+
+def decode_png(data: bytes, what: str = "image") -> Tuple[np.ndarray, str]:
+    """PNG bytes → (uint8 (H, W, C), mode), as :func:`read_png`; bytes of
+    another format raise ``NotImplementedError`` naming it (no PIL on the
+    GPU machine to decode them)."""
+    if data[:8] != _PNG_SIG:
+        raise NotImplementedError(
+            f"{what}: {image_format(data)} data; only PNG is decoded (no PIL "
+            "to decode other formats)")
+    return _decode_png(data, what)
+
+
+def _decode_png(buf: bytes, path: str) -> Tuple[np.ndarray, str]:
     pos, ihdr, idat = 8, None, []
     while pos < len(buf):
         (n,) = struct.unpack(">I", buf[pos:pos + 4])
@@ -166,14 +208,31 @@ def _lanczos(x: float) -> float:
     return sinc(x) * sinc(x / 3.0)
 
 
-def _lanczos_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Pillow's ``precompute_coeffs`` for LANCZOS over the whole axis and
+def _bicubic(x: float) -> float:
+    """Pillow's bicubic convolution kernel, a = −0.5, on (−2, 2)."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# Pillow's filters by name: (kernel, support)
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _resample_coeffs(n_in: int, n_out: int, filt: str = "lanczos"
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` over the whole axis and
     ``normalize_coeffs_8bpc``: (first source index (n_out,), fixed-point
     weights (n_out, ksize) int64, 0 past each window). The arithmetic is
     Pillow's double-precision order, with libm's ``sin``."""
+    kernel, base_support = _FILTERS[filt]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     first = np.zeros(n_out, np.int64)
     kk = np.zeros((n_out, ksize), np.int64)
@@ -182,7 +241,7 @@ def _lanczos_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), n_in) - xmin
-        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for w in k:
             ww += w
@@ -194,11 +253,12 @@ def _lanczos_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
     return first, kk
 
 
-def _resample_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, n_out: int, axis: int,
+                   filt: str = "lanczos") -> np.ndarray:
     """One of Pillow's 8-bit passes along ``axis`` of (H, W, C) uint8:
     Σ pixel·weight from half a unit, then >> 22 clipped to [0, 255]."""
     n_in = img.shape[axis]
-    first, kk = _lanczos_coeffs(n_in, n_out)
+    first, kk = _resample_coeffs(n_in, n_out, filt)
     src = np.moveaxis(img, axis, 0).astype(np.int64)
     acc = np.full((n_out,) + src.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int64)
     bshape = (n_out,) + (1,) * (src.ndim - 1)
@@ -209,19 +269,49 @@ def _resample_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize_lanczos(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """``Image.fromarray(arr).resize((w, h), Image.LANCZOS)`` of an RGB or
-    L uint8 array, bit for bit: the horizontal pass first, then the
-    vertical, each only where that axis changes size."""
+def _premultiply(img: np.ndarray) -> np.ndarray:
+    """Pillow's RGBA → RGBa (LA → La): each colour times alpha / 255 as
+    (c·a + 128 + ((c·a + 128) >> 8)) >> 8."""
+    x = img.astype(np.int64)
+    tmp = x[..., :-1] * x[..., -1:] + 128
+    return np.concatenate([((tmp >> 8) + tmp) >> 8, x[..., -1:]],
+                          -1).astype(np.uint8)
+
+
+def _unpremultiply(img: np.ndarray) -> np.ndarray:
+    """Pillow's RGBa → RGBA (La → LA): each colour 255·c // alpha clipped
+    to 255, unchanged where alpha is 0 or 255."""
+    x = img.astype(np.int64)
+    a = x[..., -1:]
+    div = np.minimum(255 * x[..., :-1] // np.maximum(a, 1), 255)
+    col = np.where((a == 0) | (a == 255), x[..., :-1], div)
+    return np.concatenate([col, a], -1).astype(np.uint8)
+
+
+def resize_pil(arr: np.ndarray, hw: Tuple[int, int],
+               filt: str = "lanczos") -> np.ndarray:
+    """``Image.fromarray(arr).resize((w, h), filter)`` of a uint8 L (H, W),
+    RGB or RGBA array (or LA with ``arr`` (H, W, 2)) with ``filt``
+    "lanczos" or "bicubic", bit for bit: the horizontal pass first, then
+    the vertical, each only where that axis changes size; RGBA and LA are
+    premultiplied by alpha before and divided after, as Pillow converts
+    them to RGBa and La. The same size returns a copy, as Pillow does."""
     h, w = hw
     out = np.asarray(arr)
+    if out.shape[:2] == (h, w):
+        return out.copy()
     squeeze = out.ndim == 2
     if squeeze:
         out = out[..., None]
+    alpha = out.shape[-1] in (2, 4)
+    if alpha:
+        out = _premultiply(out)
     if out.shape[1] != w:
-        out = _resample_axis(out, w, 1)
+        out = _resample_axis(out, w, 1, filt)
     if out.shape[0] != h:
-        out = _resample_axis(out, h, 0)
+        out = _resample_axis(out, h, 0, filt)
+    if alpha:
+        out = _unpremultiply(out)
     return out[..., 0] if squeeze else out
 
 
@@ -247,11 +337,11 @@ def load_image_rgb(path: str, max_side: Optional[int] = 1280) -> np.ndarray:
     side is at most ``max_side``. Other formats raise: the GPU machine has
     no PIL to decode them."""
     with open(path, "rb") as f:
-        sig = f.read(8)
-    if sig != _PNG_SIG:
+        sig = f.read(16)
+    if sig[:8] != _PNG_SIG:
         raise NotImplementedError(
-            f"{path}: load_image_rgb reads PNG only (no PIL to decode other "
-            "formats)")
+            f"{path}: load_image_rgb reads PNG only, not {image_format(sig)} "
+            "(no PIL to decode other formats)")
     img, mode = read_png(path)
     if mode in ("RGBA", "LA"):
         rgba = (img if mode == "RGBA" else
@@ -263,7 +353,7 @@ def load_image_rgb(path: str, max_side: Optional[int] = 1280) -> np.ndarray:
     h, w = rgb.shape[:2]
     if max_side and max(w, h) > max_side:
         scale = max_side / max(w, h)
-        rgb = resize_lanczos(rgb, (round(h * scale), round(w * scale)))
+        rgb = resize_pil(rgb, (round(h * scale), round(w * scale)), "lanczos")
     return np.ascontiguousarray(rgb)
 
 
@@ -369,3 +459,69 @@ def save_gif(path: str, frames: List[np.ndarray], fps: int = 10) -> None:
     if imgs:
         imgs[0].save(path, save_all=True, append_images=imgs[1:],
                      duration=int(1000 / fps), loop=0)
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """A Radiance RGBE (.hdr) file → (H, W, 3) float32 linear, as the JAX
+    package's loader reads it: the "-Y H +X W" layout, new-style RLE or flat
+    scanlines, each channel mantissa·2^(e − 136)."""
+    with open(path, "rb") as f:
+        if not f.readline().startswith(b"#?"):
+            raise ValueError("not a Radiance HDR file")
+        while True:
+            line = f.readline()
+            if line in (b"\n", b"\r\n"):
+                break
+        dims = f.readline().split()
+        if dims[0] != b"-Y" or dims[2] != b"+X":
+            raise ValueError(f"unsupported HDR layout: {dims}")
+        h, w = int(dims[1]), int(dims[3])
+        data = f.read()
+
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    pos = 0
+    for y in range(h):
+        if (pos + 4 <= len(data) and data[pos] == 2 and data[pos + 1] == 2
+                and (data[pos + 2] << 8 | data[pos + 3]) == w):
+            pos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    count = data[pos]
+                    pos += 1
+                    if count > 128:           # a run
+                        rgbe[y, x:x + count - 128, c] = data[pos]
+                        pos += 1
+                        x += count - 128
+                    else:                     # literals
+                        rgbe[y, x:x + count, c] = np.frombuffer(
+                            data, np.uint8, count, pos)
+                        pos += count
+                        x += count
+        else:                                 # a flat scanline
+            rgbe[y] = np.frombuffer(data, np.uint8, w * 4, pos).reshape(w, 4)
+            pos += w * 4
+    exp = rgbe[..., 3].astype(np.int32)
+    scale = np.where(exp > 0, np.ldexp(1.0, exp - 136), 0.0)
+    return (rgbe[..., :3].astype(np.float32) * scale[..., None]
+            ).astype(np.float32)
+
+
+def save_hdr(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) float linear → a flat (not RLE) Radiance HDR file, the JAX
+    package's bytes: a shared exponent ⌊log2 max⌋ + 1 per pixel."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    m = img.max(axis=-1)
+    exp = np.where(m > 1e-32, np.floor(np.log2(np.maximum(m, 1e-32))) + 1, 0)
+    # mantissa = c / 2^e · 256 = c · 2^(8 − e)
+    scale = np.where(m > 1e-32, np.ldexp(1.0, (8 - exp).astype(np.int32)),
+                     0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(m > 1e-32, exp + 128, 0).astype(np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())

@@ -62,6 +62,8 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.models.shapevae",
     "regen3d_tpu_torch.pipeline.phase3_assets",
     "regen3d_tpu_torch.pipeline.shape_distill",
+    "regen3d_tpu_torch.pipeline.phase2_inpaint",
+    "regen3d_tpu_torch.pipeline.phase8_render",
 ]
 
 

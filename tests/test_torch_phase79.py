@@ -46,7 +46,7 @@ from regen3d_tpu_torch.ops import metrics as tmetrics
 from regen3d_tpu_torch.utils.image import (
     load_image_rgb,
     read_png,
-    resize_lanczos,
+    resize_pil,
     save_image,
 )
 from regen3d_tpu_torch.utils.ply import load_ply, save_ply
@@ -275,7 +275,7 @@ def test_phase9_metrics_match_jax(runs):
     p, r = (load_image_rgb(str(path), None)
             for path in (_art(tr).predicted_image, tr / "input.png"))
     p64, r64 = (torch.from_numpy(x / 255.0)
-                for x in (resize_lanczos(p, r.shape[:2]), r))
+                for x in (resize_pil(p, r.shape[:2], "lanczos"), r))
     ssim64 = float(tmetrics.ssim(p64, r64))
     for m in (mt, mj):
         assert m["ssim"] == pytest.approx(ssim64, rel=1e-4)
@@ -347,6 +347,6 @@ def test_cli_runs_phases_5_6_7_9(tmp_path):
     assert {"chamfer_pcu", "fscore", "psnr", "ssim",
             "scene_chamfer_incl_bg"} <= set(metrics)
     assert all(np.isfinite(v) for v in metrics.values())
-    # phase 8 is still refused before anything runs
-    with pytest.raises(NotImplementedError, match="phase 8 is not ported yet"):
-        orchestrator.run_phases(default_config(str(o)), [7, 8], device="cpu")
+    # phase 10 is still refused before anything runs
+    with pytest.raises(NotImplementedError, match="phase 10 is not ported yet"):
+        orchestrator.run_phases(default_config(str(o)), [7, 10], device="cpu")
