@@ -98,12 +98,29 @@ Phases, each reported on one line:
    flash kernel at phase 3's three shapes (the DiT's guided batch, the
    encoder's and trunk's self-attention, a decoder query chunk), timed
    beside SDPA and kept out of the forward sum;
-8. phase-1 serving: a small SAM on the card (bf16, kernels) against the same
+8. phase 1: a small SAM on the card (bf16, kernels) against the same
    weights on the CPU (f32, plain versions), then detect_and_segment with
    SAM-H at full size (1024², 32 blocks, width 1280, random weights from a
    seed) on a 960×1280 synthetic room with 8 boxes from a fixed detector and
    both decoder passes: one encode per call, every mask finite and
-   non-empty;
+   non-empty; then (phase_segment) the flash forward at the detector's,
+   the saliency net's (head dim 96 in its stem and dec8, the decode's
+   single key) shapes against its plain version under fwd_error's bound,
+   bit for bit twice, timed beside SDPA, the D = 96 instance's ptxas
+   report without spills; a small detector,
+   saliency net and Depth-Anything on the card against the CPU;
+   run_phases(cfg, [1, 2]) on the bus's 960×1280 input without models
+   (the k-means proposer, its labels on the card against the CPU's, the
+   findings and the depth prior, phase 2 on every finding); and
+   phase1_segmentation.run at full width (SAM-H, DetectorConfig(), the
+   SaliencyConfig() net's points, Depth-Anything-V2-Small for depth.png;
+   random weights from seeds; the threshold lowered, and printed, only if
+   no box passes 0.25), timed by stage (detect, encode, decode ×2,
+   points with the saliency calls, export, depth) and gated on every
+   finding's five PNGs, depth.png, one encode and the launches (4
+   grid-bias, 16 + 14 + 10 a saliency call + 12 flash), every flash shape
+   of the run held against the plain version (those not timed above,
+   after it);
 9. DiT training: a small DiT's flow-matching step on the card (bf16
    compute, f32 parameters, kernels) against the CPU (f32, plain versions),
    loss and three gradients, with the AdaLN-Zero leaves drawn non-zero;
@@ -192,8 +209,9 @@ KERNELS = {
 # the launch counts of each main-path run, summed into the kernels line
 MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "phase4_merge_launches", "fit_launches", "bus_launches",
-              "phase3_launches", "sam_launches", "dit_launches",
-              "dit_sample_launches", "sam_grad_launches")
+              "phase3_launches", "sam_launches", "phase12_launches",
+              "phase1_launches", "dit_launches", "dit_sample_launches",
+              "sam_grad_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -4073,6 +4091,346 @@ def phase_sam(results, runs=3):
         f"GiB; mask areas {areas}; launches {counts}")
     results["sam_launches"] = counts
     results["phase1_sec"] = med(ts)
+    return model
+
+
+
+
+def phase1_flash_shapes(n_labels):
+    """(B, H, Sq, Sk, D) of the flash forward in phase1_segmentation.run at
+    full width, for ``n_labels`` labels: the detector's image tower (2,304
+    patches, 8 heads of 64) and text tower (a row per label, 24 bytes, 4
+    heads of 64); the saliency net's T2T stem blocks (stride 4 and 8; the
+    second shape is dec8's too) at head dim 96, its encoder (196 patches
+    and the saliency token, 6 heads of 64) and its decode (196 patches
+    against the saliency token alone). Timed beside SDPA, kept out of the
+    forward sum; the run's other shapes (Depth-Anything's trunk, SAM-H's
+    decoder) are held after it, untimed."""
+    return [(1, 8, 2304, 2304, 64), (n_labels, 4, 24, 24, 64),
+            (1, 2, 3136, 3136, 96), (1, 2, 784, 784, 96),
+            (1, 6, 197, 197, 64), (1, 6, 196, 1, 64)]
+
+# phase 1's small models on the card (bf16) against the CPU (f32): the
+# error of each output over its largest |value| (bf16 weights and
+# activations over a few layers)
+PHASE1_SMALL_TOL = 5e-2
+
+
+def phase1_small_check(gen_seed=7):
+    """A small detector (heads of 64, text heads of 32), saliency net
+    (width 384: stem heads of 96, encoder heads of 64, the single-key
+    decode) and Depth-Anything (heads of 64) on the card in bf16 against
+    the same weights on the CPU in f32; returns the errors over max |ref|
+    and the card's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models import depth_anything as da
+    from regen3d_tpu_torch.models import detector as det
+    from regen3d_tpu_torch.models import saliency as sal
+
+    cases = [
+        ("detector", det.OpenVocabDetector, det.init_flax_style_,
+         det.DetectorConfig(image_size=128, width=128, depth=2, num_heads=2,
+                            text_width=128, text_depth=1, text_len=24,
+                            embed_dim=64), 128),
+        ("saliency", sal.SaliencyTransformer, sal.init_flax_style_,
+         sal.SaliencyConfig(image_size=64, width=384, depth=1, num_heads=6),
+         64),
+        ("depth_anything", da.DepthAnything, da.init_flax_style_,
+         da.DepthAnythingConfig(image_size=112, width=128, depth=4,
+                                num_heads=2, out_idx=(0, 1, 2, 3),
+                                features=16, out_channels=(8, 16, 32, 64)),
+         112)]
+    rng = np.random.default_rng(gen_seed)
+    tokens = torch.from_numpy(det.tokenize_bytes(
+        ["chair", "table", "lamp"], 24)).long()
+    errs, kernels_seen = {}, {}
+    for name, cls, init, cfg, size in cases:
+        cpu = cls(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+        init(cpu, torch.Generator().manual_seed(gen_seed))
+        card = cls(cfg)
+        card.load_state_dict(cpu.state_dict())
+        img = torch.from_numpy(rng.random((1, size, size, 3)).astype(np.float32))
+        kernels.reset_counts()
+        with torch.no_grad():
+            if name == "detector":
+                ref = cpu(img, tokens)
+                got = card(img.cuda(), tokens.cuda())
+            else:
+                ref, got = (cpu(img),), (card(img.cuda()),)
+        torch.cuda.synchronize()
+        kernels_seen[name] = kernels.LAUNCHES["flash_fwd"]
+        errs[name] = max(float((g.float().cpu() - r).abs().max()
+                               / r.abs().max()) for g, r in zip(got, ref))
+    log(f"phase 1 small models, card bf16 kernels vs CPU f32 plain: max "
+        f"error / max |ref| {errs} (tol {PHASE1_SMALL_TOL}); flash launches "
+        f"{kernels_seen}")
+    if not max(errs.values()) < PHASE1_SMALL_TOL or min(
+            kernels_seen.values()) == 0:
+        raise AssertionError("phase 1's small models on the card disagree "
+                             "with the CPU or took no flash kernel")
+    return errs
+
+
+def phase1_finding_gates(cfg, stems):
+    """The phase-1 artifact contract: five PNGs a finding (fullSize and
+    cropped RGB, the outline and bbox prompts at the input's size, the
+    layout canvas) and depth.png; returns the failures."""
+    import os
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.utils.image import load_image_rgb, read_png
+
+    art = Artifacts(cfg)
+    h, w = load_image_rgb(cfg.path("input_image")).shape[:2]
+    bad = []
+    for stem in stems:
+        for d, shape in ((art.findings_fullsize, (h, w, 3)),
+                         (art.findings_cropped, None),
+                         (art.banana_outline, (h, w, 3)),
+                         (art.banana_bbox, (h, w, 3)),
+                         (art.banana_layouts, (h + 40, 2 * w + 30, 3))):
+            path = os.path.join(d, f"{stem}.png")
+            if not os.path.exists(path):
+                bad.append(f"missing {path}")
+                continue
+            img = read_png(path)[0]
+            if (shape and img.shape != shape) or img.ndim != 3:
+                bad.append(f"{path}: {img.shape}")
+    if not os.path.exists(art.depth_scene) or \
+            read_png(art.depth_scene)[0].shape[:2] != (h, w):
+        bad.append("depth.png missing or not the input's size")
+    return bad
+
+
+def phase1_weightless(results):
+    """run_phases(cfg, [1, 2]) on the bus's 960×1280 input through the
+    port's orchestrator: phase 1 without models (k-means on ~20,000
+    pixels on the host, every pixel labelled on the card, the findings,
+    the depth prior), then phase 2 on its findings. Gated on the artifact
+    contract and on phase 2 preparing every finding; the card's labels
+    against the CPU's on the same fit."""
+    import os
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch import kernels, orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.ops import kmeans
+    from regen3d_tpu_torch.pipeline.phase1_segmentation import (
+        proposal_features,
+    )
+    from regen3d_tpu_torch.utils.image import load_image_rgb
+
+    root = ROOT / "build" / "phase1" / "p12"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shutil.copy(ROOT / "build" / "bus" / "bus" / "input.png",
+                root / "input.png")
+    cfg = default_config(str(root / "output"),
+                         input_image=str(root / "input.png"))
+    kernels.reset_counts()
+    timings = orchestrator.run_phases(cfg, [1, 2], device="cuda")
+    results["phase12_launches"] = dict(kernels.LAUNCHES)
+    art = Artifacts(cfg)
+    stems = art.list_findings()
+    prepped = sorted(f[:-4] for f in os.listdir(art.prepped_dir))
+    bad = phase1_finding_gates(cfg, stems)
+    if len(stems) < 4 or prepped != sorted(stems) or \
+            not os.path.exists(art.empty_room):
+        bad.append(f"phase 1 wrote {stems}, phase 2 prepped {prepped}")
+    # the card's labelling against the CPU's, on one fit
+    feats, sub = proposal_features(load_image_rgb(cfg.path("input_image")))
+    t0 = time.perf_counter()
+    fit = kmeans.kmeans_fit(sub, max(6, len(cfg["labels"])), int(cfg["seed"]))
+    t_fit = time.perf_counter() - t0
+    x = torch.from_numpy(feats)
+    xg = x.cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = kmeans.kmeans_predict(xg, fit.centers)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    agree = float((card.cpu() == kmeans.kmeans_predict(x, fit.centers))
+                  .double().mean())
+    if agree < 0.999:
+        bad.append(f"k-means labels: card and CPU agree on {agree:.6f}")
+    log(f"phase 1 + 2 through run_phases on the bus's 960x1280 input "
+        f"(k-means proposer): phase 1 {timings[1]:.3f} s, phase 2 "
+        f"{timings[2]:.3f} s; {len(stems)} findings, {len(prepped)} "
+        f"prepped; k-means fit {t_fit:.3f} s on the host ({fit.n_iter} "
+        f"iterations, run {fit.best_init} of 4), predict {1e3 * t_pred:.2f} "
+        f"ms on the card, labels card vs CPU {agree:.7f}")
+    if bad:
+        raise AssertionError("phase 1 + 2: " + "; ".join(bad))
+    results["phase12_sec"] = timings
+
+
+def phase_segment(results, sam):
+    """Phase 1 beyond detect_and_segment: the flash forward at the
+    detector's and saliency net's shapes (phase1_flash_shapes: head dim 96
+    and the decode's single key among them) against the plain version; the small
+    detector, saliency net and Depth-Anything on the card against the
+    CPU; run_phases(cfg, [1, 2]) weightless (phase1_weightless); then
+    phase1_segmentation.run at full width on the bus's input: SAM-H (from
+    phase_sam), DetectorConfig() (768², width 512, depth 12), the saliency
+    net at SaliencyConfig() for point_method saliency, and
+    Depth-Anything-V2-Small for depth.png, random weights from seeds,
+    timed by stage and gated on the artifact contract and the launches,
+    and every flash shape the run gave the kernel held against the plain
+    version."""
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.models import depth_anything as da
+    from regen3d_tpu_torch.models import detector as det
+    from regen3d_tpu_torch.models import saliency as sal
+    from regen3d_tpu_torch.ops import attention as att
+    from regen3d_tpu_torch.pipeline import depth as depth_mod
+    from regen3d_tpu_torch.pipeline import phase1_segmentation as p1
+    from regen3d_tpu_torch.pipeline.saliency_distill import SaliencyModel
+
+    t_phase = time.perf_counter()
+    info = results["ptxas"].get("fwd_kernel<96, 0, false>")
+    log(f"ptxas fwd_kernel<96, 0, false>: {info}")
+    if not info or info.get("spill_stores", 0) + info.get("spill_loads", 0):
+        raise AssertionError(f"the D = 96 forward instance: {info}")
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    timed_shapes = phase1_flash_shapes(len(default_config("")["labels"]))
+    d96 = {}
+    for shape in timed_shapes:
+        d96[shape] = fwd_case(shape, gen)
+    results["flash_fwd_phase1"] = {
+        str(k): dict(ms=v["ms"], bound_ms=v["bound"][0], err=v["err"])
+        for k, v in d96.items()}
+    results["phase1_small"] = phase1_small_check()
+    phase1_weightless(results)
+
+    t0 = time.perf_counter()
+    detector = det.OpenVocabDetector(det.DetectorConfig())
+    det.init_flax_style_(detector, torch.Generator(device="cuda").manual_seed(1))
+    net = sal.SaliencyTransformer(sal.SaliencyConfig())
+    sal.init_flax_style_(net, torch.Generator(device="cuda").manual_seed(2))
+    depth_model = da.DepthAnything(da.DepthAnythingConfig.small())
+    da.init_flax_style_(depth_model,
+                        torch.Generator(device="cuda").manual_seed(3))
+    saliency = SaliencyModel(net)
+    torch.cuda.synchronize()
+    n_par = {name: sum(p.numel() for p in m.parameters()) / 1e6
+             for name, m in (("detector", detector), ("saliency", net),
+                             ("depth_anything", depth_model))}
+    log(f"phase 1 models at full width (random weights from seeds), M "
+        f"params {n_par}, built in {time.perf_counter() - t0:.1f} s")
+
+    # every stage timed on the host's clock around a synchronize
+    stages = {k: [] for k in ("detect", "encode", "decode", "points",
+                              "saliency", "export", "depth")}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages[key].append(time.perf_counter() - t)
+            return out
+        return call
+
+    patches = [(detector, "detect"), (sam, "encode"), (sam, "decode"),
+               (saliency, "saliency"), (p1, "generate_points"),
+               (p1, "export_findings"), (depth_mod, "run")]
+    keys = ["detect", "encode", "decode", "saliency", "points", "export",
+            "depth"]
+    saved = [getattr(obj, attr) for obj, attr in patches]
+    for (obj, attr), key, fn in zip(patches, keys, saved):
+        setattr(obj, attr, timed(fn, key))
+    # the (B, H, Sq, Sk, D) the run gives the flash forward
+    run_shapes = set()
+    flash_fwd = att._flash_fwd
+
+    def recorded(q, k, v, scale):
+        run_shapes.add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return flash_fwd(q, k, v, scale)
+
+    patches.append((att, "_flash_fwd"))
+    saved.append(flash_fwd)
+    att._flash_fwd = recorded
+    root = ROOT / "build" / "phase1" / "run"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shutil.copy(ROOT / "build" / "bus" / "bus" / "input.png",
+                root / "input.png")
+    over = dict(input_image=str(root / "input.png"), use_points=True,
+                point_method="saliency", points_per_object=1)
+    try:
+        for threshold in (0.25, 0.1, 0.02):
+            cfg = default_config(str(root / "output"), threshold=threshold,
+                                 **over)
+            for v in stages.values():
+                v.clear()
+            run_shapes.clear()
+            kernels.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stems = p1.run(cfg, sam=sam, detector=detector,
+                           saliency_model=saliency, depth_model=depth_model)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            if stems:
+                break
+            log(f"phase 1 run: the random detector passed no box at "
+                f"threshold {threshold}; lowering it")
+    finally:
+        for (obj, attr), fn in zip(patches, saved):
+            setattr(obj, attr, fn)
+    counts = dict(kernels.LAUNCHES)
+    results["phase1_launches"] = counts
+    n_sal = len(stages["saliency"])
+    want_flash = (detector.cfg.depth + detector.cfg.text_depth + 14
+                  + 10 * n_sal + depth_model.cfg.depth)
+    bad = phase1_finding_gates(cfg, stems)
+    if len(stems) == 0 or counts["flash_gb_fwd"] != len(sam.cfg.global_blocks) \
+            or counts["flash_fwd"] != want_flash or len(stages["encode"]) != 1 \
+            or len(stages["decode"]) != 2 or n_sal != len(stems):
+        bad.append(f"{len(stems)} findings, {n_sal} saliency calls, "
+                   f"{len(stages['encode'])} encodes, "
+                   f"{len(stages['decode'])} decodes, launches {counts} "
+                   f"(flash_fwd {want_flash} expected)")
+    missing = set(timed_shapes) - run_shapes
+    if missing:
+        bad.append(f"flash shapes held above but not run: {sorted(missing)} "
+                   f"(the run's: {sorted(run_shapes)})")
+    if bad:
+        raise AssertionError("phase 1 run: " + "; ".join(bad[:10]))
+    # every other shape of the run held against the plain version, untimed
+    rest = sorted(run_shapes - set(timed_shapes))
+    for shape in rest:
+        fwd_case(shape, gen, timed=False)
+    log(f"phase 1 run: flash forward shapes {sorted(run_shapes)}; held "
+        f"above and timed {timed_shapes}, held after the run {rest}")
+    sums = {k: round(sum(v), 4) for k, v in stages.items()}
+    log(f"phase 1 run at full width on the bus's 960x1280 input "
+        f"(threshold {threshold}): {total:.3f} s for {len(stems)} findings; "
+        f"by stage (s) {sums}, decode passes "
+        f"{[round(t, 4) for t in stages['decode']]}, saliency calls "
+        f"{n_sal} (once per detection, on the whole image; points includes "
+        f"them); peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {counts}")
+    results["phase1_run"] = dict(total=total, stages=sums, findings=len(stems),
+                                 threshold=threshold)
+    log(f"phase_segment: {time.perf_counter() - t_phase:.1f} s")
+    del detector, net, depth_model, saliency
+    torch.cuda.empty_cache()
 
 
 def _dit_draws(b, shape, gen, dev):
@@ -4413,7 +4771,7 @@ def main() -> int:
     phase_bus(results)
     phase_assets(results)
     phase_lpips(results)
-    phase_sam(results)
+    phase_segment(results, phase_sam(results))
     phase_dit(results)
     phase_sam_grad(results)
 

@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores: plain
-// (head dims 16, 32, 64 and 128) and with SAM's factored key-grid bias
+// (head dims 16, 32, 64, 96 and 128) and with SAM's factored key-grid bias
 // (D = 80). bf16 q, k, v and o; f32 bias factors; f32 row logsumexp in the
 // natural log, which the backward kernels (flash_bwd.cu) read.
 //
@@ -15,9 +15,11 @@
 //
 // What bounds it on the H100: 4·Sq·Sk·D operations per head against
 // 2·(2·Sq + 2·Sk)·D bytes (q, k and v read, o written), so at VGGT-1B's and
-// DiT-base's shapes (S = 257 to 2748, D = 64) and SAM-H's global blocks
-// ((1, 16, 4096, 80)) operations bound it, the bf16 tensor cores' rate. At
-// the mask decoder's 11-token shapes the bytes and the launch do.
+// DiT-base's shapes (S = 257 to 2748, D = 64), SAM-H's global blocks
+// ((1, 16, 4096, 80)) and the saliency net's stem ((1, 2, 3136, 96))
+// operations bound it, the bf16 tensor cores' rate. At the mask decoder's
+// 11-token shapes and the saliency decode's single key the bytes and the
+// launch do.
 //
 // The design, the backward pair's (flash_bwd.cu) turned to the forward:
 // * One block per (batch·head, BM query rows), four warps. A warp owns MT
@@ -25,12 +27,12 @@
 //   each K and V fragment feeds two products (245 registers at D = 64, no
 //   spills); 16 rows (64-row blocks) at D = 80 and 128, where two m16
 //   tiles' o accumulators, Q fragments and s do not fit in 255 registers
-//   (D = 80 spilled 120 bytes).
+//   (D = 80 spilled 120 bytes); D = 96 is the same: 16 rows a warp.
 // * The Q fragments are loaded once by ldmatrix and stay in registers for
 //   the whole key loop. The block's Q tile in shared memory is used again
 //   only to stage o.
 // * K and V stream by cp.async into a two-stage ring of 64-key bf16 tiles
-//   (swizzled; Tile<80>'s padded rows at D = 80): the next tile is in flight
+//   (swizzled; Tile's padded rows at D = 80 and 96): the next tile is in flight
 //   while the current one is multiplied. Keys past Sk are zero-filled by
 //   the copy and masked in registers (p = 0); query rows past Sq are
 //   zero-filled and never stored. The caller pads nothing.
@@ -54,8 +56,8 @@
 //   rows and split the keys. A stage of the ring holds four 64-key tiles,
 //   one per warp; each warp keeps its own (m, l, o), and warp 0 combines
 //   the four through shared memory in a fixed order, so two launches give
-//   the same bits. (D = 128 does not split: four 64-key tiles of K and V
-//   in two stages would need 256 KB.)
+//   the same bits. (D = 96 and 128 do not split: four 64-key tiles of K and
+//   V in two stages would need 226 and 256 KB, one block an SM at best.)
 // * The grid bias: the (S, S) bias never exists. Each f32 s element adds
 //   bias_h[q, k / kw] + bias_w[q, k % kw] before the max, in fragment
 //   order, as the backward's dq kernel does. At kw = 64 (SAM-H's 64 × 64
@@ -416,7 +418,7 @@ cudaError_t launch_plain(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int sq, int sk, float scale,
                          cudaStream_t stream) {
   const GridBias none{nullptr, nullptr, nullptr, nullptr, 0, 0, false};
-  if constexpr (D != 128) {
+  if constexpr (D <= 64) {
     if (sq <= 16 && sk > FWD_BN)
       return launch_fwd<D, NO_BIAS, true>(q, k, v, none, o, lse, bh, sq, sk,
                                           scale, stream);
@@ -439,6 +441,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     case 16: return (int)launch_plain<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 32: return (int)launch_plain<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 64: return (int)launch_plain<64>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case 96: return (int)launch_plain<96>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 128: return (int)launch_plain<128>(q, k, v, o, lse, bh, sq, sk, scale, st);
   }
   return (int)cudaErrorInvalidValue;

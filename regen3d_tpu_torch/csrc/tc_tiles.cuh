@@ -44,11 +44,12 @@ __device__ __forceinline__ int swz(int row, int col) {
 
 // The shared-memory layout of a bf16 tile of rows of D values: its row
 // stride in elements and the offset of (row, col). D = 16, 32, 64, 128:
-// rows of D values with swizzled chunks (swz). D = 80, ten 16-byte chunks,
-// which a power-of-two XOR cannot permute within the row: rows padded to 88
-// values (176 bytes), no XOR. Row r then starts at bank 12·r mod 32, so the
-// eight consecutive rows of one ldmatrix phase cover all 32 banks once, and
-// so do the eight rows × four lanes of a C-fragment store.
+// rows of D values with swizzled chunks (swz). D = 80 and 96, ten and
+// twelve 16-byte chunks, which a power-of-two XOR cannot permute within the
+// row: rows padded by one chunk, to 88 and 104 values (176 and 208 bytes),
+// no XOR. Row r then starts at bank 12·r or 20·r mod 32, so the eight
+// consecutive rows of one ldmatrix phase cover all 32 banks once, and so
+// do the eight rows × four lanes of a C-fragment store.
 template <int D>
 struct Tile {
   static constexpr int STRIDE = D;
@@ -57,13 +58,19 @@ struct Tile {
   }
 };
 
-template <>
-struct Tile<80> {
-  static constexpr int STRIDE = 88;
+template <int D>
+struct PaddedTile {
+  static constexpr int STRIDE = D + 8;
   __device__ static __forceinline__ int off(int row, int col) {
     return row * STRIDE + col;
   }
 };
+
+template <>
+struct Tile<80> : PaddedTile<80> {};
+
+template <>
+struct Tile<96> : PaddedTile<96> {};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

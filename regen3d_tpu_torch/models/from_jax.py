@@ -9,7 +9,9 @@ models.vggt.VGGT`, ``regen3d_tpu.models.sam.SAM`` →
 ``regen3d_tpu.pipeline.phase3_assets.CondEncoder`` →
 :class:`~regen3d_tpu_torch.pipeline.phase3_assets.CondEncoder` and
 ``regen3d_tpu.models.shapevae.{ShapeEncoder,ShapeDecoder}`` →
-:mod:`regen3d_tpu_torch.models.shapevae`.
+:mod:`regen3d_tpu_torch.models.shapevae`, and phase 1's detector, saliency
+net and Depth-Anything (``regen3d_tpu.models.{detector,saliency,
+depth_anything}`` → their namesakes in :mod:`regen3d_tpu_torch.models`).
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
@@ -22,7 +24,9 @@ mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
   torch does (see ``layers.ConvTranspose``). Which 4-D kernels are
   transposed convolutions is named per model, since the shapes cannot tell
   (where I = O a Conv rule would load mirrored taps in silence);
-* ``LayerNorm.scale`` and ``RMSNorm.scale`` → ``weight``; every other leaf
+* ``LayerNorm.scale`` and ``RMSNorm.scale`` → ``weight``;
+* ``Embed.embedding`` (the detector's ``byte_embed``) → ``Embedding.weight``
+  (both (vocabulary, width)); every other leaf
   (``bias``, ``latent_pos``, ``latent_queries``, ``inst_gate{i}``, SAM's
   tables) keeps its name.
 
@@ -38,6 +42,8 @@ import torch
 
 # module names of the transposed convolutions, per model
 SAM_CONV_TRANSPOSE = frozenset({"up1", "up2"})
+SALIENCY_CONV_TRANSPOSE = frozenset({"up8", "up4"})
+DEPTH_ANYTHING_CONV_TRANSPOSE = frozenset({"resize0", "resize1"})
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -70,7 +76,7 @@ def state_from_jax(params: Mapping,
             leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
         elif leaf == "kernel":
             raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
         name = ".".join([*mods, leaf])
         if name in state:
@@ -79,31 +85,13 @@ def state_from_jax(params: Mapping,
     return state
 
 
-def vggt_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The state dict of a flax VGGT tree."""
-    return state_from_jax(params)
-
-
-def sam_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The state dict of a flax SAM tree (``up1``/``up2`` are transposed
-    convolutions)."""
-    return state_from_jax(params, SAM_CONV_TRANSPOSE)
-
-
-def load_vggt_from_jax(model: torch.nn.Module, params: Mapping) -> None:
+def load_from_jax(model: torch.nn.Module, params: Mapping,
+                  conv_transpose: FrozenSet[str] = frozenset()) -> None:
     """Load a flax tree into ``model``; every leaf must be used exactly once
-    and every model parameter must be set (``strict=True``)."""
-    model.load_state_dict(vggt_state_from_jax(params), strict=True)
-
-
-def load_sam_from_jax(model: torch.nn.Module, params: Mapping) -> None:
-    """As :func:`load_vggt_from_jax`, for SAM."""
-    model.load_state_dict(sam_state_from_jax(params), strict=True)
-
-
-def load_from_jax(model: torch.nn.Module, params: Mapping) -> None:
-    """As :func:`load_vggt_from_jax`, for a model without transposed
-    convolutions: the shape DiT, LPIPS (its trunk and its five 1×1 heads are
-    convolutions), and phase 3's condition encoder and shape VAE (f32 leaves
-    load into f32 parameters)."""
-    model.load_state_dict(state_from_jax(params), strict=True)
+    and every model parameter must be set (``strict=True``).
+    ``conv_transpose`` names the model's transposed convolutions
+    (``SAM_CONV_TRANSPOSE``, ``SALIENCY_CONV_TRANSPOSE``,
+    ``DEPTH_ANYTHING_CONV_TRANSPOSE``). f32 leaves load into f32
+    parameters and are cast where a parameter is stored in another
+    dtype."""
+    model.load_state_dict(state_from_jax(params, conv_transpose), strict=True)

@@ -16,7 +16,7 @@ The modules follow flax's numerics, which the JAX package runs:
   f32 params and returns ``dtype``;
 * GELU is the tanh approximation (flax ``nn.gelu``);
 * ``Conv`` pads ``SAME`` and keeps NHWC at its interface;
-* ``ConvTranspose`` is flax's ``nn.ConvTranspose`` at kernel 2, stride 2;
+* ``ConvTranspose`` is flax's ``nn.ConvTranspose`` (``SAME``);
 * every module is built on the card unless the caller passes ``device``.
 
 Submodule names follow the flax tree, so ``models/from_jax.py`` maps
@@ -67,30 +67,44 @@ class Conv(nn.Conv2d):
         self.compute_dtype = dtype if param_dtype is not None else None
 
     def forward(self, x):                       # (B, H, W, C)
-        if self.stride[0] > 1 and (x.shape[1] % self.stride[0]
-                                   or x.shape[2] % self.stride[1]):
-            raise ValueError("strided SAME conv needs a divisible input")
         dt = self.compute_dtype or self.weight.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        y = self._conv_forward(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), b)
-        return y.permute(0, 2, 3, 1)
+        x = x.to(dt).permute(0, 3, 1, 2)
+        s = self.stride[0]
+        if s > 1:   # SAME: ceil(n / s) outputs, the odd pad at the end
+            pads = []
+            for n in (x.shape[3], x.shape[2]):
+                total = max((-(-n // s) - 1) * s + self.kernel_size[0] - n, 0)
+                pads += [total // 2, total - total // 2]
+            if any(pads):
+                x = F.pad(x, pads)
+        return self._conv_forward(x, self.weight.to(dt), b).permute(0, 2, 3, 1)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
-    """flax ``nn.ConvTranspose`` at kernel 2, stride 2 (``SAME``) on NHWC:
-    each input pixel becomes a 2×2 output block. flax does not flip the
-    kernel (``transpose_kernel=False``), so its tap (a, b) lands on output
-    offset (1 − a, 1 − b); torch's tap (a, b) lands on (a, b). The weight
-    holds torch's layout (in, out, 2, 2); ``models/from_jax.py`` mirrors the
-    taps when it loads a flax kernel."""
+    """flax ``nn.ConvTranspose`` (``SAME``, no kernel flip) on NHWC: the
+    output is ``stride`` times the input. flax correlates the
+    stride-dilated input, padded by ``pad_a`` in front (k − 1 when
+    stride > k − 1, else ⌈(k + stride − 2) / 2⌉), with the unflipped
+    kernel, so its tap t lands where torch's tap k − 1 − t does; torch's
+    transposed convolution with padding k − 1 − pad_a then gives the same
+    positions, its tail past ``stride``·n cropped (k = 3, stride 2). The
+    weight holds torch's layout (in, out, k, k); ``models/from_jax.py``
+    mirrors the taps when it loads a flax kernel."""
 
-    def __init__(self, c_in, c_out, dtype=torch.float32, device="cuda"):
-        super().__init__(c_in, c_out, 2, stride=2, dtype=dtype, device=device)
+    def __init__(self, c_in, c_out, kernel=2, stride=2, dtype=torch.float32,
+                 device="cuda"):
+        pad_a = kernel - 1 if stride > kernel - 1 else -(-(kernel + stride - 2)
+                                                          // 2)
+        super().__init__(c_in, c_out, kernel, stride=stride,
+                         padding=kernel - 1 - pad_a, dtype=dtype,
+                         device=device)
 
     def forward(self, x):                       # (B, H, W, C)
+        h, w = x.shape[1:3]
+        s = self.stride[0]
         y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
-        return y.permute(0, 2, 3, 1)
+        return y[:, :, :h * s, :w * s].permute(0, 2, 3, 1)
 
 
 class LayerNorm(nn.Module):
@@ -121,6 +135,27 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
     nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
                           generator=generator)
     weight.copy_(tmp)
+
+
+def init_flax_layers_(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default init of every ``Dense``, ``Conv`` and
+    ``ConvTranspose`` (lecun-normal truncated kernels, zero biases) and
+    ``LayerNorm`` (ones, zeros) in ``model``, drawn from ``generator`` in
+    module order; a model's own leaves (tokens, tables) are its to draw."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ConvTranspose):
+                w = mod.weight                       # (in, out, kh, kw)
+                lecun_normal_(w, w.shape[0] * w.shape[2] * w.shape[3],
+                              generator)
+            elif isinstance(mod, (Dense, Conv)):
+                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
+            elif isinstance(mod, LayerNorm) and mod.weight is not None:
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            if isinstance(mod, (Dense, Conv, ConvTranspose)) \
+                    and mod.bias is not None:
+                mod.bias.zero_()
 
 
 def gelu(x):

@@ -38,7 +38,7 @@ from regen3d_tpu_torch.models.layers import (
     LayerNorm,
     Mlp,
     gelu,
-    lecun_normal_,
+    init_flax_layers_,
 )
 from regen3d_tpu_torch.ops.attention import (
     flash_attention,
@@ -450,20 +450,8 @@ def init_flax_style_(model: nn.Module, generator: torch.Generator) -> None:
     rel-pos tables, which flax starts at zero (where the bias vanishes and
     an attention that dropped it would go unseen), are drawn from
     N(0, REL_POS_INIT_STD²) instead."""
+    init_flax_layers_(model, generator)
     with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, ConvTranspose):
-                w = mod.weight                       # (in, out, kh, kw)
-                lecun_normal_(w, w.shape[0] * w.shape[2] * w.shape[3],
-                              generator)
-            elif isinstance(mod, (Dense, Conv)):
-                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
-            elif isinstance(mod, LayerNorm) and mod.weight is not None:
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            if isinstance(mod, (Dense, Conv, ConvTranspose)) \
-                    and mod.bias is not None:
-                mod.bias.zero_()
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "pe_gauss":

@@ -7,8 +7,9 @@ q, k, v are (B, H, S, D). Both ops are ``torch.autograd.Function``s.
 * :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``'s kernel
   forward and, under autograd, ``csrc/flash_bwd.cu``'s dq and dkv kernels
   backward (bf16 in and out, tensor cores with f32 accumulation, p (and
-  scale·ds backward) rounded to bf16 before the second products,
-  D ∈ {16, 32, 64, 128}).
+  scale·ds backward) rounded to bf16 before the second products; the
+  forward at D ∈ {16, 32, 64, 96, 128}, the backward at D ∈ {16, 32, 64,
+  128}).
 * :func:`flash_attention_grid_bias_fwd` launches the same forward kernel
   with SAM's factored key-grid bias and ``csrc/flash_bwd.cu``'s grid-bias
   dq and dkv kernels backward (the same tensor-core design, the dq kernel
@@ -33,7 +34,8 @@ import torch
 
 from regen3d_tpu_torch import kernels
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # both directions
+FWD_KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128)   # 96: the saliency net's
 GB_KERNEL_HEAD_DIMS = (80,)          # SAM-H; the JAX package runs no other
 
 
@@ -226,7 +228,7 @@ def _flash_fwd(q, k, v, s):
     if q.device.type == "cpu":
         return attention_reference(q, k, v, s)
     b, h, sq, d = q.shape
-    _check_kernel_inputs("flash_attention", d, KERNEL_HEAD_DIMS,
+    _check_kernel_inputs("flash_attention", d, FWD_KERNEL_HEAD_DIMS,
                          _bf16_named(q=q, k=k, v=v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

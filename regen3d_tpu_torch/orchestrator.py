@@ -3,9 +3,11 @@
 
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
-card (``cuda``, the default) or ``cpu``. Phases 2 to 9 are ported; asking
-for phase 1, 10 or 11 raises before anything runs. Phase 2 runs on the
-host (the offline inpainter without an API key). Phase 3 loads
+card (``cuda``, the default) or ``cpu``. Phases 1 to 9 are ported; asking
+for phase 10 or 11 raises before anything runs. Phase 1 runs weightless,
+as the JAX CLI's does (no model object is loaded from a checkpoint yet):
+the k-means proposer, the findings and the offline depth prior. Phase 2
+runs on the host (the offline inpainter without an API key). Phase 3 loads
 ``checkpoints/shape_distilled.npz`` unless ``shape_checkpoint`` names
 another generator. Phase 4 needs a VGGT model object, which no checkpoint
 reader supplies yet: called from the CLI it raises as the JAX package's
@@ -23,6 +25,11 @@ from typing import Dict, List, Optional
 from regen3d_tpu_torch.config import Config, load_config
 
 log = logging.getLogger(__name__)
+
+
+def _phase1(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import phase1_segmentation
+    phase1_segmentation.run(cfg, device=device)
 
 
 def _phase2(cfg: Config, device) -> None:
@@ -71,7 +78,7 @@ def _phase9(cfg: Config, device) -> None:
 
 
 PHASES: Dict[int, tuple] = {
-    1: ("segmentation (detector + SAM → findings)", None),
+    1: ("segmentation (detector + SAM → findings)", _phase1),
     2: ("generative inpainting (amodal + empty room)", _phase2),
     3: ("image → 3D assets (flow-matching DiT)", _phase3),
     4: ("camera + point cloud (VGGT)", _phase4),

@@ -5,8 +5,7 @@ keeps its own so that it imports nothing of the JAX package).
 Mirrors the reference's ``BoundingBox``/``DetectionResult``
 (src/utils/data_types.py:11-54), the greedy IoU NMS
 (filter_duplicate_detections, segmentation.py:102-134) and the SAMAug-style
-point generators (point_generators.py:19-144). ``mask_centroid`` and
-``mask_bbox`` are copies of the helpers in regen3d_tpu/utils/image.py.
+point generators (point_generators.py:19-144).
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from regen3d_tpu_torch.utils.image import mask_centroid
 
 
 @dataclass
@@ -64,23 +65,6 @@ class DetectionResult:
             cx, cy = self.box.center
             return int(round(cx)), int(round(cy))
         return mask_centroid(self.mask)
-
-
-def mask_centroid(mask: np.ndarray) -> Tuple[int, int]:
-    """Integer (cx, cy) pixel centroid — the identity half of the
-    `<label>__(cx, cy)` finding-name contract."""
-    ys, xs = np.nonzero(mask)
-    if len(xs) == 0:
-        return 0, 0
-    return int(round(xs.mean())), int(round(ys.mean()))
-
-
-def mask_bbox(mask: np.ndarray) -> Tuple[int, int, int, int]:
-    """(x0, y0, x1, y1) inclusive-exclusive bounds."""
-    ys, xs = np.nonzero(mask)
-    if len(xs) == 0:
-        return 0, 0, 0, 0
-    return int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1
 
 
 def nms(detections: List[DetectionResult], iou_threshold: float = 0.5

@@ -1,47 +1,66 @@
-"""Phase 1 serving: detections → one SAM encode → batched mask decode
-(counterpart of regen3d_tpu/pipeline/phase1_segmentation.py:47-225).
+"""Phase 1: detections → one SAM encode → batched mask decode → the
+finding images (counterpart of regen3d_tpu/pipeline/phase1_segmentation.py).
 
 ``detect_and_segment`` takes the image, a detector (any object with
-``detect(image, labels, threshold)`` returning ``DetectionResult``s) and the
-port's :class:`~regen3d_tpu_torch.models.sam.SAM`, which holds its own
-weights and lives on the device it was built on. Same contract as the JAX
+``detect(image, labels, threshold)`` returning ``DetectionResult``s, such as
+:class:`~regen3d_tpu_torch.models.detector.OpenVocabDetector`) and the
+port's :class:`~regen3d_tpu_torch.models.sam.SAM`, which hold their own
+weights and live on the device they were built on. Same contract as the JAX
 function: NMS, one encode per image, every detection through one batched
 decode (detections padded to a bucket of 4, points to 4 with label −1), the
-best-IoU head per detection, and the two-pass ``use_points`` mode.
+best-IoU head per detection, and the two-pass ``use_points`` mode, whose
+``saliency`` points come from a
+:class:`~regen3d_tpu_torch.pipeline.saliency_distill.SaliencyModel` when
+one is passed. Without a detector the weightless ``cluster_proposals``
+runs scikit-learn's k-means as ``ops/kmeans.py`` copies it.
 
-Not ported yet: loading a detector or saliency checkpoint (a config that
-names one, or ``point_method: saliency``, raises ``NotImplementedError``),
-``export_findings`` and ``run``.
+``export_findings`` writes the finding, banana and layout PNGs;
+``run`` loads the input, detects, exports and writes ``depth.png``.
+
+Refused: a ``detector_checkpoint``, ``saliency_checkpoint`` or
+``depth_anything_checkpoint`` that names an existing directory (orbax
+checkpoints: ROADMAP Queue 1 item 1; a missing path falls back as in the
+JAX package), ``interactive_edit`` and ``use_banana: false`` (the editor
+UI and the upscaler: Queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from regen3d_tpu_torch.artifacts import Artifacts, finding_stem
 from regen3d_tpu_torch.models.layers import resize_bilinear
+from regen3d_tpu_torch.ops.kmeans import kmeans_fit, kmeans_predict
+from regen3d_tpu_torch.pipeline import depth as depth_mod
 from regen3d_tpu_torch.pipeline.detection import (
     BoundingBox,
     DetectionResult,
     generate_points,
-    mask_bbox,
     nms,
+)
+from regen3d_tpu_torch.utils.image import (
+    draw_bbox,
+    draw_outline,
+    load_image_rgb,
+    mask_bbox,
+    masked_on_white,
+    padded_crop,
+    save_image,
+    segmentation_layout,
 )
 
 log = logging.getLogger(__name__)
 
 
-def cluster_proposals(image: np.ndarray, num_regions: int = 6,
-                      min_area_frac: float = 0.005,
-                      seed: int = 0) -> List[DetectionResult]:
-    """Weightless proposer: k-means over (color, position) features; each
-    cluster covering at least ``min_area_frac`` of the image becomes a
-    detection labelled 'object'. Needs scikit-learn."""
-    from sklearn.cluster import KMeans
-
+def proposal_features(image: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The weightless proposer's float32 features of every pixel, (H·W, 5):
+    colour in [0, 2] and x / W, y / H; and the ~20,000 of them (every
+    ⌊H·W / 20000⌋-th) that the k-means is fitted on."""
     h, w = image.shape[:2]
     ys, xs = np.mgrid[0:h, 0:w]
     feats = np.concatenate([
@@ -49,9 +68,22 @@ def cluster_proposals(image: np.ndarray, num_regions: int = 6,
         (xs.reshape(-1, 1) / w).astype(np.float32),
         (ys.reshape(-1, 1) / h).astype(np.float32),
     ], axis=1)
-    sub = feats[::max(1, len(feats) // 20000)]
-    km = KMeans(n_clusters=num_regions, n_init=4, random_state=seed).fit(sub)
-    labels = km.predict(feats).reshape(h, w)
+    return feats, feats[::max(1, len(feats) // 20000)]
+
+
+def cluster_proposals(image: np.ndarray, num_regions: int = 6,
+                      min_area_frac: float = 0.005, seed: int = 0,
+                      device="cuda") -> List[DetectionResult]:
+    """Weightless proposer: k-means over (colour, position) features; each
+    cluster covering at least ``min_area_frac`` of the image becomes a
+    detection labelled 'object'. The fit runs on the subsample on the host
+    (``ops.kmeans.kmeans_fit``), the labelling of every pixel on
+    ``device``."""
+    h, w = image.shape[:2]
+    feats, sub = proposal_features(image)
+    fit = kmeans_fit(sub, num_regions, seed)
+    labels = kmeans_predict(torch.from_numpy(feats).to(device), fit.centers)
+    labels = labels.to(torch.int32).cpu().numpy().reshape(h, w)
     out = []
     for k in range(num_regions):
         m = labels == k
@@ -100,29 +132,42 @@ def _sam_decode_batched(sam, emb: torch.Tensor, image_hw: Tuple[int, int],
     return list((logits > 0).cpu().numpy())
 
 
-def _refuse_unported(cfg: Mapping, detector) -> None:
-    if detector is None and str(cfg.get("detector_checkpoint", "") or ""):
+def _checkpoint_dir(cfg: Mapping, key: str, what: str, fallback: str) -> None:
+    """Refuse a checkpoint path that exists (the port reads no orbax
+    checkpoint yet); log a missing one, as the JAX package does, and go on
+    to ``fallback``."""
+    path = str(cfg.get(key, "") or "")
+    if path and os.path.isdir(path):
         raise NotImplementedError(
-            "phase 1: loading a detector checkpoint is not ported; pass a "
-            "detector object")
-    if str(cfg.get("point_method", "")) == "saliency":
-        raise NotImplementedError(
-            "phase 1: point_method 'saliency' needs the saliency model, "
-            "which is not ported")
+            f"phase 1: {key} {path}: loading the {what} from a checkpoint "
+            "directory is not ported (ROADMAP Queue 1 item 1); pass a model "
+            "object")
+    if path:
+        log.warning("phase1: %s %s missing — %s", key, path, fallback)
 
 
 @torch.no_grad()
 def detect_and_segment(cfg: Mapping, image: np.ndarray, sam=None,
-                       detector=None) -> List[DetectionResult]:
+                       detector=None, saliency_model=None,
+                       device=None) -> List[DetectionResult]:
     """Detector → NMS → SAM masks for one (H, W, 3) uint8 image.
 
     cfg is the pipeline config (any mapping with ``get``): labels,
     threshold, iou_threshold, use_points, point_method, points_per_object,
-    scale_bounding_boxes and seed are read. Without a detector the
-    weightless ``cluster_proposals`` proposes regions; without ``sam`` each
-    detection keeps its mask or gets its box filled. Returns the detections
-    whose mask is non-empty."""
-    _refuse_unported(cfg, detector)
+    scale_bounding_boxes, seed and the checkpoint paths are read. Without a
+    detector the weightless ``cluster_proposals`` proposes regions,
+    labelling pixels on ``device`` (default: SAM's device, else the card);
+    without ``sam`` each detection keeps its mask or gets its box filled.
+    ``saliency_model`` gives the ``saliency`` points. Returns the
+    detections whose mask is non-empty."""
+    if detector is None:
+        _checkpoint_dir(cfg, "detector_checkpoint", "detector",
+                        "clustering fallback")
+    if str(cfg.get("point_method", "")) == "saliency" and saliency_model is None:
+        _checkpoint_dir(cfg, "saliency_checkpoint", "saliency net",
+                        "max_distance fallback")
+    if device is None:
+        device = next(sam.parameters()).device if sam is not None else "cuda"
     labels = list(cfg.get("labels", []))
     thr = float(cfg.get("threshold", 0.25))
     iou_thr = float(cfg.get("iou_threshold", 0.5))
@@ -131,9 +176,9 @@ def detect_and_segment(cfg: Mapping, image: np.ndarray, sam=None,
     if detector is not None:
         dets = detector.detect(image, labels, thr)
     else:
-        log.warning("phase1: no detector — clustering proposals")
+        log.warning("phase1: no detector — clustering fallback")
         dets = cluster_proposals(image, num_regions=max(6, len(labels)),
-                                 seed=seed)
+                                 seed=seed, device=device)
     dets = nms(dets, iou_thr)
     h, w = image.shape[:2]
 
@@ -167,7 +212,8 @@ def detect_and_segment(cfg: Mapping, image: np.ndarray, sam=None,
         method = str(cfg.get("point_method", "max_distance"))
         points_px = []
         for d in dets:
-            pts_px = (generate_points(method, image, d.mask, n_pts, seed)
+            pts_px = (generate_points(method, image, d.mask, n_pts, seed,
+                                      saliency_model=saliency_model)
                       if d.mask is not None and d.mask.any()
                       else np.zeros((0, 2), np.float32))
             points_px.append(np.asarray(pts_px, np.float32))
@@ -177,3 +223,75 @@ def detect_and_segment(cfg: Mapping, image: np.ndarray, sam=None,
         for d, m in zip(dets, masks):
             d.mask = m
     return [d for d in dets if d.mask is not None and d.mask.any()]
+
+
+def export_findings(cfg: Mapping, image: np.ndarray,
+                    detections: List[DetectionResult]) -> List[str]:
+    """Write the phase-1 artifact set for each detection, named by
+    ``finding_stem(label, mask centroid)``: the object on white
+    (``findings/fullSize``), its padded crop (``findings/cropped``), the
+    outline and bbox prompt images (``banana/outline``, ``banana/bbox``)
+    and the layout canvas. Returns the stems."""
+    art = Artifacts(cfg)
+    padding = int(cfg.get("findings_padding", 5))
+    for d in (art.findings_fullsize, art.findings_cropped, art.banana_outline,
+              art.banana_bbox, art.banana_layouts):
+        os.makedirs(d, exist_ok=True)
+    stems = []
+    for d in detections:
+        stem = finding_stem(d.label, d.mask_centroid)
+        stems.append(stem)
+        full = masked_on_white(image, d.mask)
+        save_image(os.path.join(art.findings_fullsize, f"{stem}.png"), full)
+        bbox = mask_bbox(d.mask)
+        save_image(os.path.join(art.findings_cropped, f"{stem}.png"),
+                   padded_crop(full, bbox, padding))
+        outline = draw_outline(
+            image, d.mask,
+            color=cfg.get("banana_line_color", [255, 0, 0]),
+            thickness=int(cfg.get("banana_line_thickness", 3)),
+            offset_px=int(cfg.get("banana_offset_px", 5)))
+        save_image(os.path.join(art.banana_outline, f"{stem}.png"), outline)
+        save_image(os.path.join(art.banana_bbox, f"{stem}.png"),
+                   draw_bbox(image, bbox,
+                             color=cfg.get("banana_bbox_color", [255, 0, 0]),
+                             thickness=int(cfg.get("banana_bbox_thickness", 2)),
+                             padding=int(cfg.get("banana_bbox_padding", 6))))
+        save_image(os.path.join(art.banana_layouts, f"{stem}.png"),
+                   segmentation_layout(image, d.mask))
+        log.info("phase1: finding %s (score %.2f)", stem, d.score)
+    return stems
+
+
+def run(cfg: Mapping, sam=None, detector=None, saliency_model=None,
+        depth_model=None,
+        detections: Optional[List[DetectionResult]] = None,
+        device="cuda") -> List[str]:
+    """Phase 1 on ``input_image`` (a PNG, at most 1280 px a side): detect
+    and segment (unless ``detections`` are given), export the findings and
+    write ``depth.png`` with ``depth_model`` (a
+    :class:`~regen3d_tpu_torch.models.depth_anything.DepthAnything`) or the
+    offline prior. Models run where they were built; the weightless
+    k-means labels pixels on ``device``. Unlike the JAX package, a failing
+    depth step is not caught (ROADMAP Queue 3 al). Returns the stems."""
+    if bool(cfg.get("interactive_edit", False)):
+        raise NotImplementedError(
+            "phase 1: interactive_edit (the browser mask editor, "
+            "pipeline/editor_ui.py) is not ported (ROADMAP Queue 1 item 5)")
+    if not bool(cfg.get("use_banana", True)):
+        raise NotImplementedError(
+            "phase 1: use_banana false upscales the crops with the diffusion "
+            "upscaler (pipeline/upscale.py), which is not ported (ROADMAP "
+            "Queue 1 item 5)")
+    depth_mod.refuse_checkpoint(cfg, depth_model)
+    image = load_image_rgb(cfg.path("input_image"), max_side=1280)
+    if detections is None:
+        detections = detect_and_segment(cfg, image, sam=sam, detector=detector,
+                                        saliency_model=saliency_model,
+                                        device=device)
+    if not detections:
+        log.warning("phase1: no detections")
+        return []
+    stems = export_findings(cfg, image, detections)
+    depth_mod.run(cfg, model=depth_model)
+    return stems

@@ -41,12 +41,10 @@ from regen3d_tpu_torch.models.dit import DiTConfig, ShapeDiT
 from regen3d_tpu_torch.models.dit import init_flax_style_ as init_dit_
 from regen3d_tpu_torch.models.dit import sample as dit_sample
 from regen3d_tpu_torch.models.layers import (
-    Conv,
-    Dense,
     LayerNorm,
     PatchEmbed,
     TransformerBlock,
-    lecun_normal_,
+    init_flax_layers_,
     posemb_sincos_2d,
     resize_bilinear,
 )
@@ -110,14 +108,7 @@ def init_flax_style_(module: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator`` as flax initialises a condition
     encoder or shape decoder: lecun-normal (truncated) Dense and Conv
     kernels, zero biases, LayerNorm ones and zeros."""
-    with torch.no_grad():
-        for mod in module.modules():
-            if isinstance(mod, (Dense, Conv)):
-                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
-                mod.bias.zero_()
-            elif isinstance(mod, LayerNorm) and mod.weight is not None:
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+    init_flax_layers_(module, generator)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Host-side image utilities of the port: PNG IO, ``load_image_rgb``, mask
-ops, nearest, BICUBIC and LANCZOS resizes, GIF, the Radiance HDR codec
-(counterpart of regen3d_tpu/utils/image.py's subset that phases 2, 3, 5-9
-use), and phase 3's RGBA load.
+ops, phase 1's finding images and layouts, nearest, BICUBIC and LANCZOS
+resizes, GIF, the Radiance HDR codec (counterpart of
+regen3d_tpu/utils/image.py), and phase 3's RGBA load.
 
 The GPU machine this port runs on has neither PIL nor OpenCV, so PNG files
 go through a small codec on ``zlib`` and ``struct``:
@@ -29,7 +29,7 @@ import math
 import os
 import struct
 import zlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -436,12 +436,93 @@ def dilate_mask(mask: np.ndarray, pixels: int = 3) -> np.ndarray:
     return out
 
 
+def mask_centroid(mask: np.ndarray) -> Tuple[int, int]:
+    """Integer (cx, cy) pixel centroid — the identity half of the
+    `<label>__(cx, cy)` finding-name contract."""
+    ys, xs = np.nonzero(mask)
+    if len(xs) == 0:
+        return 0, 0
+    return int(round(xs.mean())), int(round(ys.mean()))
+
+
 def mask_bbox(mask: np.ndarray) -> Tuple[int, int, int, int]:
     """(x0, y0, x1, y1) inclusive-exclusive bounds."""
     ys, xs = np.nonzero(mask)
     if len(xs) == 0:
         return 0, 0, 0, 0
     return int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1
+
+
+# --- phase 1's finding images (save_masked_findings and
+# save_findings_banana, segmentation.py:828-1028; create_segmentation_layout,
+# global_utils.py:18-257) ------------------------------------------------------
+
+def masked_on_white(image: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Object pixels on a white background (the finding PNG format)."""
+    out = np.full_like(image, 255)
+    out[mask] = image[mask]
+    return out
+
+
+def padded_crop(image: np.ndarray, bbox: Tuple[int, int, int, int],
+                padding: int = 5) -> np.ndarray:
+    """``image`` cut to ``bbox`` grown by ``padding`` px, clamped to the
+    image."""
+    x0, y0, x1, y1 = bbox
+    h, w = image.shape[:2]
+    return image[max(0, y0 - padding):min(h, y1 + padding),
+                 max(0, x0 - padding):min(w, x1 + padding)]
+
+
+def draw_outline(image: np.ndarray, mask: np.ndarray,
+                 color: Sequence[int] = (255, 0, 0), thickness: int = 3,
+                 offset_px: int = 5) -> np.ndarray:
+    """A ``thickness``-px ring ``offset_px`` outside the mask, in ``color``
+    (the 'banana' prompt image); dilation by the 4-neighbour cross."""
+    grown = dilate_mask(mask, offset_px)
+    ring = dilate_mask(grown, thickness) & ~grown
+    out = image.copy()
+    out[ring] = color
+    return out
+
+
+def draw_bbox(image: np.ndarray, bbox: Tuple[int, int, int, int],
+              color: Sequence[int] = (255, 0, 0), thickness: int = 2,
+              padding: int = 6) -> np.ndarray:
+    """``bbox`` grown by ``padding`` px drawn as a ``thickness``-px frame."""
+    x0, y0, x1, y1 = bbox
+    h, w = image.shape[:2]
+    x0 = max(0, x0 - padding)
+    y0 = max(0, y0 - padding)
+    x1 = min(w - 1, x1 + padding)
+    y1 = min(h - 1, y1 + padding)
+    out = image.copy()
+    for t in range(thickness):
+        out[max(0, y0 - t), x0:x1] = color
+        out[min(h - 1, y1 + t), x0:x1] = color
+        out[y0:y1, max(0, x0 - t)] = color
+        out[y0:y1, min(w - 1, x1 + t)] = color
+    return out
+
+
+def segmentation_layout(image: np.ndarray, mask: np.ndarray,
+                        panel_scale: float = 1.0) -> np.ndarray:
+    """Side-by-side canvas: the image with the object outlined on the left,
+    an empty white 'Extracted Object' panel on the right (the prompt canvas
+    of the amodal-extraction path)."""
+    h, w = image.shape[:2]
+    panel_w = int(w * panel_scale)
+    canvas = np.full((h + 40, w + panel_w + 30, 3), 240, np.uint8)
+    canvas[30:30 + h, 10:10 + w] = draw_outline(image, mask)
+    canvas[30:30 + h, w + 20:w + 20 + panel_w] = 255
+    return canvas
+
+
+def extract_layout_panel(layout: np.ndarray, orig_hw: Tuple[int, int],
+                         panel_scale: float = 1.0) -> np.ndarray:
+    """Inverse of :func:`segmentation_layout`: the 'Extracted Object' panel."""
+    h, w = orig_hw
+    return layout[30:30 + h, w + 20:w + 20 + int(w * panel_scale)]
 
 
 def save_gif(path: str, frames: List[np.ndarray], fps: int = 10) -> None:

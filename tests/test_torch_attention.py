@@ -370,11 +370,13 @@ def test_grid_bias_bound_refuses_a_broken_kernel(fault, out, factor):
 
 # (B, H, Sq, Sk, D) and key grid of the forward bound's checks: two keys at
 # D = 128 (VGGT's camera trunk), the mask decoder's 11 tokens against 70 keys
-# (split across the warps) and back, and SAM-H's head dim at a 4 × 24 grid
-# (kw neither 64 nor dividing it) and an 8 × 8 one
+# (split across the warps) and back, SAM-H's head dim at a 4 × 24 grid
+# (kw neither 64 nor dividing it) and an 8 × 8 one, the saliency net's
+# D = 96 over a ragged 150 keys and its decode's single key at D = 64
 FWD_BOUND_CASES = [((1, 2, 2, 2, 128), None), ((1, 2, 11, 70, 16), None),
                    ((1, 2, 70, 11, 16), None), ((1, 2, 96, 96, 80), (4, 24)),
-                   ((1, 2, 64, 64, 80), (8, 8))]
+                   ((1, 2, 64, 64, 80), (8, 8)), ((1, 2, 150, 150, 96), None),
+                   ((1, 6, 196, 1, 64), None)]
 
 
 def _fwd_problem(shape, grid, seed):

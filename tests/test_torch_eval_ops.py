@@ -469,12 +469,17 @@ def test_bake_vertex_colors_matches_jax():
 
 # --- depth prior --------------------------------------------------------------
 
-def test_depth_prior_matches_jax_and_a_model_is_refused():
+def test_depth_prior_matches_jax_and_a_model_is_refused(tmp_path):
+    """The prior matches JAX; a depth model given as an orbax checkpoint
+    directory is refused (Depth-Anything objects run:
+    test_torch_phase1_run.py)."""
     img = np.random.default_rng(9).integers(0, 256, (48, 64, 3), np.uint8)
     np.testing.assert_array_equal(tdepth.estimate_depth(img),
                                   jdepth.estimate_depth(img))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tdepth.estimate_depth(img, model=object())
+    cfg = default_config(str(tmp_path / "output"),
+                         depth_anything_checkpoint=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        tdepth.run(cfg)
 
 
 # --- Pillow's LANCZOS and alpha compositing -----------------------------------

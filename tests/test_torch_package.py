@@ -1,6 +1,7 @@
 """The port stands apart from JAX: importing it and every slice module pulls
 in neither ``jax`` nor ``regen3d_tpu``; the weight bridge uses every flax
-leaf of the tiny VGGT exactly once and loads with strict=True; models and
+leaf of the tiny VGGT and of the phase-1 models exactly once and loads with
+strict=True; models and
 ``PoseParams.zeros`` built without a device go to the card."""
 
 import dataclasses
@@ -64,6 +65,10 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.shape_distill",
     "regen3d_tpu_torch.pipeline.phase2_inpaint",
     "regen3d_tpu_torch.pipeline.phase8_render",
+    "regen3d_tpu_torch.ops.kmeans", "regen3d_tpu_torch.models.detector",
+    "regen3d_tpu_torch.models.saliency",
+    "regen3d_tpu_torch.models.depth_anything",
+    "regen3d_tpu_torch.pipeline.saliency_distill",
 ]
 
 
@@ -90,28 +95,93 @@ def test_chip_smoke_imports_no_jax():
 
 def test_weight_bridge_uses_every_leaf_once():
     from regen3d_tpu.models.vggt import VGGT as JVGGT, VGGTConfig as JConfig
-    from regen3d_tpu_torch.models.from_jax import (
-        load_vggt_from_jax,
-        vggt_state_from_jax,
-    )
+    from regen3d_tpu_torch.models.from_jax import load_from_jax, state_from_jax
     from regen3d_tpu_torch.models.vggt import VGGT, VGGTConfig
 
     jc = dataclasses.replace(JConfig.tiny(), dtype=jnp.float32)
     params = jax.device_get(jax.jit(JVGGT(jc).init)(
         jax.random.PRNGKey(0), jnp.zeros((1, 2, 28, 28, 3))))
     n_leaves = len(jax.tree_util.tree_leaves(params))
-    state = vggt_state_from_jax(params)
+    state = state_from_jax(params)
     model = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32),
                  device="cpu")
     assert len(state) == n_leaves == len(model.state_dict())
-    load_vggt_from_jax(model, params)
+    load_from_jax(model, params)
     k = np.asarray(params["params"]["aggregator"]["frame_block0"]["attn"]["qkv"]["kernel"])
     np.testing.assert_array_equal(
         model.aggregator.frame_block0.attn.qkv.weight.detach().numpy(), k.T)
     # a leaf left over is refused
     params["params"]["camera_head"]["stray"] = np.zeros(3, np.float32)
     with pytest.raises(RuntimeError, match="stray"):
-        load_vggt_from_jax(model, params)
+        load_from_jax(model, params)
+
+
+@pytest.mark.parametrize("family", ["detector", "saliency",
+                                    "depth_anything"])
+def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
+    """The phase-1 models' flax trees (shapes only, no compile) map leaf for
+    leaf onto the port's modules: the detector's ``Embed.embedding``
+    lands on the byte embedding, the transposed convolutions are named
+    per model and get mirrored taps."""
+    from regen3d_tpu.models import depth_anything as jda
+    from regen3d_tpu.models import detector as jdet
+    from regen3d_tpu.models import saliency as jsal
+    from regen3d_tpu_torch.models import depth_anything as tda
+    from regen3d_tpu_torch.models import detector as tdet
+    from regen3d_tpu_torch.models import saliency as tsal
+    from regen3d_tpu_torch.models.from_jax import (
+        DEPTH_ANYTHING_CONV_TRANSPOSE,
+        SALIENCY_CONV_TRANSPOSE,
+        load_from_jax,
+        state_from_jax,
+    )
+
+    key = jax.random.PRNGKey(0)
+    if family == "detector":
+        jc = jdet.DetectorConfig.tiny()
+        shapes = jax.eval_shape(jdet.OpenVocabDetector(jc).init, key,
+                                jnp.zeros((1, 64, 64, 3)),
+                                jnp.zeros((2, jc.text_len), jnp.int32))
+        model, ct = tdet.OpenVocabDetector(tdet.DetectorConfig.tiny(),
+                                           device="cpu"), frozenset()
+        leaf, where = ("text", "byte_embed", "embedding"), \
+            "text.byte_embed.weight"
+    elif family == "saliency":
+        shapes = jax.eval_shape(
+            jsal.SaliencyTransformer(jsal.SaliencyConfig.tiny()).init, key,
+            jnp.zeros((1, 64, 64, 3)))
+        model, ct = tsal.SaliencyTransformer(tsal.SaliencyConfig.tiny(),
+                                             device="cpu"), \
+            SALIENCY_CONV_TRANSPOSE
+        leaf, where = ("up8", "kernel"), "up8.weight"
+    else:
+        shapes = jax.eval_shape(
+            jda.DepthAnything(jda.DepthAnythingConfig.tiny()).init, key,
+            jnp.zeros((1, 56, 56, 3)))
+        model, ct = tda.DepthAnything(tda.DepthAnythingConfig.tiny(),
+                                      device="cpu"), \
+            DEPTH_ANYTHING_CONV_TRANSPOSE
+        leaf, where = ("resize0", "kernel"), "resize0.weight"
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+    n_leaves = len(jax.tree_util.tree_leaves(params))
+    state = state_from_jax(params, ct)
+    assert len(state) == n_leaves == len(model.state_dict())
+    load_from_jax(model, params, ct)
+    arr = params["params"]
+    for k in leaf:
+        arr = arr[k]
+    got = dict(model.named_parameters())[where].detach()
+    if arr.ndim == 4:           # flax (H, W, I, O), taps mirrored
+        arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    np.testing.assert_array_equal(       # in the parameter's dtype
+        got.float().numpy(),
+        torch.from_numpy(arr.copy()).to(got.dtype).float().numpy())
+    # a leaf left over is refused
+    params["params"]["stray"] = np.zeros(3, np.float32)
+    with pytest.raises(RuntimeError, match="stray"):
+        load_from_jax(model, params, ct)
 
 
 def test_models_are_built_on_the_card_by_default():

@@ -8,7 +8,8 @@ from a seed, weights carried by ``from_jax``):
   detections, one encode on each side, decoder logits within 1e-4 of their
   largest value, and the same masks except where JAX's resized logit is
   within 1e-3 of 0 (there the sign is rounding);
-* what the port does not load yet is refused, not replaced.
+* a checkpoint directory the port cannot read yet is refused, not
+  replaced.
 """
 
 import functools
@@ -116,12 +117,16 @@ def test_detect_and_segment_matches_jax(scene, use_points, tmp_path):
 
 
 def test_refuses_what_is_not_ported(tmp_path):
+    """A detector or saliency checkpoint directory (orbax) is refused
+    before any work; missing paths and ``point_method: saliency`` without
+    a model fall back as in the JAX package (test_torch_phase1_run.py)."""
     image = np.zeros((8, 8, 3), np.uint8)
     for overrides in ({"detector_checkpoint": str(tmp_path)},
-                      {"point_method": "saliency"}):
+                      {"point_method": "saliency",
+                       "saliency_checkpoint": str(tmp_path)}):
         cfg = default_config(str(tmp_path), **overrides)
-        with pytest.raises(NotImplementedError):
-            tp.detect_and_segment(cfg, image)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+            tp.detect_and_segment(cfg, image, device="cpu")
 
 
 def test_without_sam_boxes_become_masks(tmp_path):

@@ -5,7 +5,7 @@
   file byte for byte the same, the npz arrays equal (the zip members carry
   their write time, so the files are compared by content).
 - ``run_vggt_inference`` at ``VGGTConfig.tiny()`` with the JAX package's
-  weights carried by ``load_vggt_from_jax``, on a square and a non-square
+  weights carried by ``load_from_jax``, on a square and a non-square
   PNG at ``conf_thres_value`` 1.0 with a point cap that bites: points and
   cameras within rtol/atol 1e-4, the same rows kept.
 - ``-p 4`` fails alike in both CLIs, with and without ``Use_VGGT``, before
@@ -35,7 +35,7 @@ from regen3d_tpu_torch import orchestrator as torch_orch
 from regen3d_tpu_torch.artifacts import Artifacts
 from regen3d_tpu_torch.config import default_config
 from regen3d_tpu_torch.models import vggt as tv
-from regen3d_tpu_torch.models.from_jax import load_vggt_from_jax
+from regen3d_tpu_torch.models.from_jax import load_from_jax
 from regen3d_tpu_torch.pipeline import phase4_camera as tp4
 from regen3d_tpu_torch.utils.colmapio import ColmapReconstruction
 from regen3d_tpu_torch.utils.image import save_image
@@ -169,7 +169,7 @@ def tiny_models():
         lambda path, x: x + 0.05 if path[-1].key in ("ls1", "ls2") else
         (x + 0.01 if "poseLN_modulation" in str(path) else x), params)
     tm = tv.VGGT(tc, device="cpu")
-    load_vggt_from_jax(tm, jax.device_get(params))
+    load_from_jax(tm, jax.device_get(params))
     return jm, params, tm
 
 

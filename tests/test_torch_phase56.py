@@ -349,8 +349,8 @@ def test_cli_runs_phases_5_and_6_and_refuses_the_others(bus, tmp_path):
                   early_stop_min_iterations=2, debug_save=True,
                   grid_rotation_steps=4)
     (work / "src" / "cfg.yaml").write_text(yaml.safe_dump(values))
-    with pytest.raises(NotImplementedError, match="phase 1 is not ported yet"):
-        orchestrator.main(["-p", "5", "6", "1", "--config",
+    with pytest.raises(NotImplementedError, match="phase 10 is not ported yet"):
+        orchestrator.main(["-p", "5", "6", "10", "--config",
                            str(work / "src" / "cfg.yaml"), "--device", "cpu"])
     assert not (work / "output" / "masks").exists()
     orchestrator.main(["-p", "5", "6", "--config",

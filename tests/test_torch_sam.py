@@ -29,8 +29,8 @@ from regen3d_tpu.models import sam as js
 from regen3d_tpu.ops.attention import _gb_fwd_impl, flash_attention_grid_bias
 from regen3d_tpu_torch.models import sam as ts
 from regen3d_tpu_torch.models.from_jax import (
-    load_sam_from_jax,
-    sam_state_from_jax,
+    SAM_CONV_TRANSPOSE,
+    load_from_jax,
     state_from_jax,
 )
 from regen3d_tpu_torch.models.layers import ConvTranspose
@@ -76,7 +76,7 @@ def port_sam(params, flash_min_tokens=1024):
     tc = dataclasses.replace(ts.SamConfig.tiny(), dtype=torch.float32,
                              flash_min_tokens=flash_min_tokens)
     model = ts.SAM(tc, device="cpu")
-    load_sam_from_jax(model, params)
+    load_from_jax(model, params, SAM_CONV_TRANSPOSE)
     return model.eval()
 
 
@@ -147,7 +147,7 @@ def test_conv_transpose_taps_match_flax(c_in, c_out):
 def test_weight_bridge_uses_every_leaf_once(tiny_pair):
     _, params, model = tiny_pair
     n_leaves = len(jax.tree_util.tree_leaves(params))
-    state = sam_state_from_jax(params)
+    state = state_from_jax(params, SAM_CONV_TRANSPOSE)
     assert len(state) == n_leaves == len(model.state_dict())
     k = np.asarray(params["params"]["mask_decoder"]["up1"]["kernel"])
     np.testing.assert_array_equal(
@@ -163,7 +163,7 @@ def test_weight_bridge_uses_every_leaf_once(tiny_pair):
     stray = jax.tree_util.tree_map(lambda x: x, params)
     stray["params"]["mask_decoder"]["stray"] = np.zeros(3, np.float32)
     with pytest.raises(RuntimeError, match="stray"):
-        load_sam_from_jax(model, stray)
+        load_from_jax(model, stray, SAM_CONV_TRANSPOSE)
 
 
 @pytest.mark.parametrize("flash_min_tokens", [10 ** 9, 1],

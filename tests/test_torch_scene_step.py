@@ -15,7 +15,7 @@ import torch
 from regen3d_tpu.models.vggt import VGGT as JVGGT, VGGTConfig as JConfig
 from regen3d_tpu.pipeline.pose_fit import FitConfig as JFit
 from regen3d_tpu.pipeline.scene_step import scene_step as jax_scene_step
-from regen3d_tpu_torch.models.from_jax import load_vggt_from_jax
+from regen3d_tpu_torch.models.from_jax import load_from_jax
 from regen3d_tpu_torch.models.vggt import VGGT, VGGTConfig
 from regen3d_tpu_torch.pipeline.pose_fit import FitConfig
 from regen3d_tpu_torch.pipeline.scene_step import nanmedian, scene_step
@@ -41,7 +41,7 @@ def setup():
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(imgs)[None])
     tm = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32),
               device="cpu")
-    load_vggt_from_jax(tm, jax.device_get(params))
+    load_from_jax(tm, jax.device_get(params))
     masks = np.zeros((2, s, s), bool)
     masks[0, 2:12, 2:12] = True
     masks[1, 14:26, 14:26] = True

@@ -17,7 +17,7 @@ from regen3d_tpu.models import layers as jl
 from regen3d_tpu.models import vggt as jv
 from regen3d_tpu_torch.models import layers as tl
 from regen3d_tpu_torch.models import vggt as tv
-from regen3d_tpu_torch.models.from_jax import load_vggt_from_jax
+from regen3d_tpu_torch.models.from_jax import load_from_jax
 from test_torch_package import one_torch_thread  # noqa: F401
 
 
@@ -86,7 +86,7 @@ def tiny_pair():
         lambda path, x: x + 0.05 if path[-1].key in ("ls1", "ls2") else
         (x + 0.01 if "poseLN_modulation" in str(path) else x), params)
     tm = tv.VGGT(tc, device="cpu")
-    load_vggt_from_jax(tm, jax.device_get(params))
+    load_from_jax(tm, jax.device_get(params))
     return jm, params, tm, imgs
 
 
