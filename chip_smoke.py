@@ -121,7 +121,25 @@ Phases, each reported on one line:
    grid-bias, 16 + 14 + 10 a saliency call + 12 flash), every flash shape
    of the run held against the plain version (those not timed above,
    after it);
-9. DiT training: a small DiT's flow-matching step on the card (bf16
+9. the alternates and baselines (phase_alternates): the flash forward's
+   D = 8 instances in ptxas's report; a small DUSt3R (heads of 16) on the
+   card against the CPU, and the aligner on exact synthetic pairs on the
+   card (poses recovered within 0.05); DUSt3R at
+   DUSt3R_ViTLarge_BaseDecoder_512_linear's widths (Dust3rConfig(), 512²,
+   random weights, the heads given a pinhole pattern) through
+   phase4_dust3r.run on the bus's input and empty room (the pair viewer)
+   and run_from_model on three frames (the 300-iteration aligner), timed
+   by stage and gated on the artifacts and 72 flash launches a forward,
+   the pairwise forward timed and split by device operation, its flash
+   shapes held against the plain version; -p 10 and -p 11 through
+   run_phases on the bus's input without a generator (the tiny one, 48³),
+   timed by stage and gated on the scene GLBs, the stage directories and
+   DPA's fit on the silhouette kernels (61 forward, 60 backward launches);
+   every D = 8 shape of those runs bit for bit the D = 16 instance on
+   zero-padded inputs and under fwd_error's bound, timed beside SDPA; then
+   both baselines with a DiTConfig.base() generator passed in (MIDI with
+   cross_instance, in box mode on 4 of the bus's objects; 64³);
+10. DiT training: a small DiT's flow-matching step on the card (bf16
    compute, f32 parameters, kernels) against the CPU (f32, plain versions),
    loss and three gradients, with the AdaLN-Zero leaves drawn non-zero;
    then DiTConfig.base() (random weights from a seed) trained for 30 steps
@@ -130,7 +148,7 @@ Phases, each reported on one line:
    launches per step of each flash kernel, and the loss on a fixed batch
    falls; the host's and the device's time for each call of a step (loss,
    backward, AdamW); then sample() at base (4 steps, guidance 5, B = 6);
-10. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
+11. SAM's encoder gradient: a small SAM's VJP on the card against the CPU,
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
    times), and one more SAM-H VJP under torch.profiler, split into its ten
@@ -210,7 +228,9 @@ KERNELS = {
 MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "phase4_merge_launches", "fit_launches", "bus_launches",
               "phase3_launches", "sam_launches", "phase12_launches",
-              "phase1_launches", "dit_launches", "dit_sample_launches",
+              "phase1_launches", "dust3r_launches", "dust3r3_launches",
+              "midi_cli_launches", "dpa_cli_launches", "midi_full_launches",
+              "dpa_full_launches", "dit_launches", "dit_sample_launches",
               "sam_grad_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
@@ -732,6 +752,27 @@ def phase_silhouette(results, gen):
         plain_ms=t["bp"], bound_ms=main["bound"]["bwd"][0],
         bound_by=main["bound"]["bwd"][1], library_ms=None, tolerance=tol_dc,
         timed=checked)
+
+
+@contextlib.contextmanager
+def recording_flash_shapes():
+    """Within the block, every (B, H, Sq, Sk, D) given to the flash forward
+    (ops.attention._flash_fwd) is added to the yielded set; the function is
+    restored after."""
+    from regen3d_tpu_torch.ops import attention as att
+
+    shapes = set()
+    flash_fwd = att._flash_fwd
+
+    def recorded(q, k, v, scale):
+        shapes.add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return flash_fwd(q, k, v, scale)
+
+    att._flash_fwd = recorded
+    try:
+        yield shapes
+    finally:
+        att._flash_fwd = flash_fwd
 
 
 def fwd_error(o, o_ref, terms, lse, lse_ref, name):
@@ -4294,7 +4335,6 @@ def phase_segment(results, sam):
     from regen3d_tpu_torch.models import depth_anything as da
     from regen3d_tpu_torch.models import detector as det
     from regen3d_tpu_torch.models import saliency as sal
-    from regen3d_tpu_torch.ops import attention as att
     from regen3d_tpu_torch.pipeline import depth as depth_mod
     from regen3d_tpu_torch.pipeline import phase1_segmentation as p1
     from regen3d_tpu_torch.pipeline.saliency_distill import SaliencyModel
@@ -4353,17 +4393,6 @@ def phase_segment(results, sam):
     saved = [getattr(obj, attr) for obj, attr in patches]
     for (obj, attr), key, fn in zip(patches, keys, saved):
         setattr(obj, attr, timed(fn, key))
-    # the (B, H, Sq, Sk, D) the run gives the flash forward
-    run_shapes = set()
-    flash_fwd = att._flash_fwd
-
-    def recorded(q, k, v, scale):
-        run_shapes.add((*q.shape[:3], k.shape[2], q.shape[3]))
-        return flash_fwd(q, k, v, scale)
-
-    patches.append((att, "_flash_fwd"))
-    saved.append(flash_fwd)
-    att._flash_fwd = recorded
     root = ROOT / "build" / "phase1" / "run"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -4371,19 +4400,21 @@ def phase_segment(results, sam):
                 root / "input.png")
     over = dict(input_image=str(root / "input.png"), use_points=True,
                 point_method="saliency", points_per_object=1)
+    # the (B, H, Sq, Sk, D) the run gives the flash forward: run_shapes
     try:
         for threshold in (0.25, 0.1, 0.02):
             cfg = default_config(str(root / "output"), threshold=threshold,
                                  **over)
             for v in stages.values():
                 v.clear()
-            run_shapes.clear()
             kernels.reset_counts()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            stems = p1.run(cfg, sam=sam, detector=detector,
-                           saliency_model=saliency, depth_model=depth_model)
+            with recording_flash_shapes() as run_shapes:
+                stems = p1.run(cfg, sam=sam, detector=detector,
+                               saliency_model=saliency,
+                               depth_model=depth_model)
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
             if stems:
@@ -4747,6 +4778,584 @@ def phase_sam_grad(results):
         f"device time; the ten operations with the most: {split}")
 
 
+# the small DUSt3R of phase_alternates' card-vs-CPU check: heads of 16 in
+# the encoder and both decoders (the tiny one's decoders have heads of 12,
+# which no kernel instance takes)
+DUST3R_SMALL = dict(patch=8, enc_width=64, enc_depth=2, enc_heads=4,
+                    dec_width=64, dec_depth=2, dec_heads=4)
+DUST3R_SMALL_TOL = 5e-2
+# one DUSt3R forward: an encoder block's attention and each decoder block's
+# self- and cross-attention in both decoders (24 + 12·2·2)
+DUST3R_FLASH_PER_FORWARD = 72
+# caps of phase_alternates' baseline runs, whose random-init generators
+# give volumes that marching turns into meshes of any size: the octree
+# resolution of the CLI runs (the tiny generator) and of the full-width
+# ones, and MIDI's instances at full width (box mode, the bus's first 4
+# objects)
+ALT_OCTREE_CLI = 48
+ALT_OCTREE_FULL = 64
+ALT_MIDI_BOXES = 4
+
+
+def synthetic_pairs(n, h, w, f, seed):
+    """tests/test_dust3r.py's scene: random poses (rotations of 0.1 rad,
+    translations of 0.3), a bumpy surface 2 in front of each camera; the
+    exact pairwise pointmaps of every ordered pair at confidence 8.
+    Returns (cam→world 4×4 per view, own-frame pointmaps, pairs, pred)."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.pipeline.phase4_dust3r import make_pairs
+    from regen3d_tpu_torch.transforms.rotations import so3_exp
+
+    rng = np.random.default_rng(seed)
+    c2ws = [np.eye(4)]
+    for _ in range(1, n):
+        M = np.eye(4)
+        M[:3, :3] = so3_exp(torch.tensor(rng.normal(0, 0.1, 3),
+                                         dtype=torch.float32)).numpy()
+        M[:3, 3] = rng.normal(0, 0.3, 3)
+        c2ws.append(M)
+    vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+    own = []
+    for k in range(n):
+        depth = 2.0 + 0.3 * np.sin(uu / w * 3 + k) * np.cos(vv / h * 2)
+        own.append(np.stack([(uu + 0.5 - w / 2) / f * depth,
+                             (vv + 0.5 - h / 2) / f * depth, depth], -1))
+    pairs = make_pairs(n)
+    pts1, pts2 = [], []
+    for (i, j) in pairs:
+        w2c_i = np.linalg.inv(c2ws[i])
+        world_j = own[j] @ c2ws[j][:3, :3].T + c2ws[j][:3, 3]
+        pts1.append(own[i])
+        pts2.append(world_j @ w2c_i[:3, :3].T + w2c_i[:3, 3])
+    e = len(pairs)
+    pred = {"pts3d1": np.stack(pts1).astype(np.float32),
+            "pts3d2": np.stack(pts2).astype(np.float32),
+            "conf1": np.full((e, h, w), 8.0, np.float32),
+            "conf2": np.full((e, h, w), 8.0, np.float32)}
+    return c2ws, own, pairs, pred
+
+
+def dust3r_small_checks():
+    """A small DUSt3R (DUST3R_SMALL) on the card in bf16 against the same
+    weights on the CPU in f32, every output's error over max |ref| under
+    DUST3R_SMALL_TOL; then global_align on the card on exact synthetic
+    pairs (3 views, 150 iterations): the poses and depths recovered within
+    tests/test_dust3r.py's 0.05. Returns the errors and the card's
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models import dust3r as d3
+    from regen3d_tpu_torch.pipeline import phase4_dust3r as p4d
+
+    cfg = d3.Dust3rConfig(**DUST3R_SMALL)
+    cpu = d3.AsymmetricCroCo3DStereo(dataclasses.replace(
+        cfg, dtype=torch.float32), device="cpu")
+    d3.init_flax_style_(cpu, torch.Generator().manual_seed(11))
+    card = d3.AsymmetricCroCo3DStereo(cfg)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(11)
+    imgs = [torch.from_numpy(rng.random((2, 64, 64, 3)).astype(np.float32))
+            for _ in range(2)]
+    kernels.reset_counts()
+    with torch.no_grad():
+        ref = cpu(*imgs)
+        got = card(*(x.cuda() for x in imgs))
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["flash_fwd"]
+    errs = {k: float((got[k].float().cpu() - ref[k]).abs().max()
+                     / ref[k].abs().max()) for k in ref}
+    log(f"DUSt3R small (heads of 16), card bf16 kernels vs CPU f32 plain: "
+        f"max error / max |ref| {errs} (tol {DUST3R_SMALL_TOL}); flash "
+        f"launches {launches}")
+    want = cfg.enc_depth + 4 * cfg.dec_depth
+    if max(errs.values()) > DUST3R_SMALL_TOL or launches != want:
+        raise AssertionError("the small DUSt3R on the card disagrees with "
+                             "the CPU or took other launches")
+
+    c2ws, own, pairs, pred = synthetic_pairs(3, 12, 16, 24.0, seed=4)
+    t0 = time.perf_counter()
+    scene = p4d.global_align(pred, pairs, 3, niter=150, device="cuda")
+    dt = time.perf_counter() - t0
+    pose_err = max(float(np.abs(scene["c2w"][k][:3]
+                                - (np.linalg.inv(c2ws[0]) @ c2ws[k])[:3]).max())
+                   for k in range(3))
+    depth_err = float(np.abs(scene["depth"][0] / own[0][..., 2] - 1).max())
+    log(f"DUSt3R aligner on the card on exact synthetic pairs (3 views, 150 "
+        f"iterations, {dt:.2f} s): pose error {pose_err:.2e}, depth relative "
+        f"error {depth_err:.2e} (tol 0.05)")
+    if not (pose_err <= 0.05 and depth_err <= 0.05
+            and np.isfinite(scene["losses"]).all()):
+        raise AssertionError("the aligner on the card did not recover the "
+                             "synthetic poses")
+    return errs
+
+
+def _timed_patches(stages, patches):
+    """Wrap each (object, attribute, stage) so that every call's seconds,
+    from a synchronize to a synchronize, land in stages[stage]; returns
+    the saved originals for _restore."""
+    import torch
+
+    saved = []
+    for obj, attr, key in patches:
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn))
+
+        def call(*args, _fn=fn, _key=key, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages.setdefault(_key, []).append(time.perf_counter() - t)
+            return out
+        setattr(obj, attr, call)
+    return saved
+
+
+def _restore(saved):
+    for obj, attr, fn in saved:
+        setattr(obj, attr, fn)
+
+
+# dust3r_pinhole_heads_'s pattern: the heads' kernels scaled by
+# PINHOLE_SCALE; each patch's pixels on rays spread by PINHOLE_SPREAD about
+# the axis at raw depth PINHOLE_DEPTH (a point ~3.5 in front of the camera),
+# raw confidence PINHOLE_CONF
+PINHOLE_SPREAD, PINHOLE_DEPTH, PINHOLE_CONF, PINHOLE_SCALE = 0.5, 1.5, 2.0, 0.05
+
+
+def dust3r_pinhole_heads_(model):
+    """Give a random-init DUSt3R's heads a pinhole pattern (the PINHOLE_
+    constants). A random head puts about half the pixels behind the camera
+    and leaves x/z and y/z uncorrelated with the pixel, so the Weiszfeld
+    focal (Σ w·uv·pp / Σ w·pp²) is ~0/0 and the aligner starts from
+    log(NaN); the tokens still reach the outputs through the scaled
+    kernels."""
+    import torch
+
+    p = model.cfg.patch
+    off = (torch.arange(p, dtype=torch.float32) + 0.5 - p / 2) / p \
+        * PINHOLE_SPREAD
+    bias = torch.stack([off[None, :].expand(p, p), off[:, None].expand(p, p),
+                        torch.full((p, p), PINHOLE_DEPTH),
+                        torch.full((p, p), PINHOLE_CONF)], -1).reshape(-1)
+    with torch.no_grad():
+        for head in (model.head1, model.head2):
+            head.proj.weight.mul_(PINHOLE_SCALE)
+            head.proj.bias.copy_(bias)
+
+
+def dust3r_artifact_gates(cfg, names):
+    """The DUSt3R phase 4's artifacts: scene.glb, camera.npz (finite, 4 × 4
+    extrinsic), scene_vggt.ply and the COLMAP text; returns the
+    failures."""
+    import os
+
+    import numpy as np
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.utils.colmapio import ColmapReconstruction
+    from regen3d_tpu_torch.utils.ply import load_ply
+
+    art = Artifacts(cfg)
+    bad = []
+    for path in (os.path.join(art.pre3d_dir, "scene.glb"), art.camera_npz,
+                 art.scene_cloud_ply, art.points_ply):
+        if not os.path.exists(path):
+            bad.append(f"missing {path}")
+    if bad:
+        return bad
+    cam = np.load(art.camera_npz)
+    if cam["extrinsic"].shape != (4, 4) or not all(
+            np.isfinite(cam[k]).all() for k in cam.files):
+        bad.append(f"camera.npz {dict(cam)}")
+    pts = load_ply(art.scene_cloud_ply).vertices
+    if len(pts) == 0 or not np.isfinite(pts).all():
+        bad.append(f"scene_vggt.ply: {pts.shape}")
+    rec = ColmapReconstruction.read(art.colmap_sparse)
+    if len(rec.images) != len(names):
+        bad.append(f"COLMAP images {len(rec.images)} for {names}")
+    return bad
+
+
+def dust3r_full(results, gen_t):
+    """DUSt3R at naver/DUSt3R_ViTLarge_BaseDecoder_512_linear's widths
+    (Dust3rConfig(): ViT-L encoder 1024 × 24, 16 heads; decoders 768 × 12,
+    12 heads; 512², bf16, random weights from a seed, the heads given a
+    pinhole pattern by dust3r_pinhole_heads_): phase4_dust3r.run on
+    the bus's input and empty room (the pair viewer), then run_from_model
+    on three frames (the input, the empty room, the input mirrored: the
+    300-iteration aligner), each timed by stage and gated on the artifacts
+    and 72 flash launches; then the pairwise forward of the three frames
+    timed and split into its device operations, and every flash shape of
+    the runs held against the plain version."""
+    import os
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.models import dust3r as d3
+    from regen3d_tpu_torch.pipeline import phase4_dust3r as p4d
+    from regen3d_tpu_torch.utils.image import load_image_rgb, save_image
+
+    t0 = time.perf_counter()
+    model = d3.AsymmetricCroCo3DStereo(d3.Dust3rConfig())
+    d3.init_flax_style_(model, torch.Generator(device="cuda").manual_seed(21))
+    dust3r_pinhole_heads_(model)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"DUSt3R ViT-L/16 + base decoder (random weights from a seed): "
+        f"{n_par / 1e6:.1f} M params, {n_bytes / 2 ** 30:.2f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    bus = ROOT / "build" / "bus" / "bus"
+    root = ROOT / "build" / "alt" / "dust3r"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = default_config(str(root / "output"), Use_VGGT=False,
+                         image_size=512, input_image=str(bus / "input.png"))
+    art = Artifacts(cfg)
+    os.makedirs(os.path.dirname(art.empty_room), exist_ok=True)
+    shutil.copy(Artifacts(default_config(str(bus / "output"))).empty_room,
+                art.empty_room)
+    third = root / "mirrored.png"
+    save_image(str(third), load_image_rgb(str(bus / "input.png"),
+                                          max_side=None)[:, ::-1].copy())
+    frames = (str(bus / "input.png"), art.empty_room, str(third))
+    cfg3 = default_config(str(root / "three"), Use_VGGT=False,
+                          image_size=512, input_image=frames[0])
+    runs = {}
+    with recording_flash_shapes() as shapes:
+        for name, call in (
+                ("run", lambda: p4d.run(cfg, model=model)),
+                ("three", lambda: p4d.run_from_model(cfg3, model, frames))):
+            stages = {}
+            saved = _timed_patches(stages, [
+                (p4d, "load_images", "load"),
+                (p4d, "run_pairwise", "pairwise"),
+                (p4d, "pair_viewer", "align"),
+                (p4d, "global_align", "align"),
+                (p4d, "export_dust3r_scene", "export")])
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                call()
+            finally:
+                _restore(saved)
+            torch.cuda.synchronize()
+            runs[name] = dict(total=time.perf_counter() - t0,
+                              stages={k: round(sum(v), 4)
+                                      for k, v in stages.items()},
+                              launches=dict(kernels.LAUNCHES))
+    results["dust3r_launches"] = runs["run"]["launches"]
+    results["dust3r3_launches"] = runs["three"]["launches"]
+    bad = dust3r_artifact_gates(cfg, ["input.png", "empty_room.png"])
+    bad += dust3r_artifact_gates(cfg3, ["input.png", "empty_room.png",
+                                        "mirrored.png"])
+    for name, r in runs.items():
+        if r["launches"]["flash_fwd"] != DUST3R_FLASH_PER_FORWARD:
+            bad.append(f"{name}: flash launches {r['launches']}")
+    what = {"run": "input + empty room, the pair viewer",
+            "three": "three frames, the 300-iteration aligner"}
+    for name, r in runs.items():
+        log(f"DUSt3R phase 4 ({what[name]}): {r['total']:.3f} s; by stage "
+            f"(s) {r['stages']}; launches {r['launches']}")
+    if bad:
+        raise AssertionError("DUSt3R phase 4: " + "; ".join(bad))
+
+    images = p4d.load_images(frames, 512, "cuda")
+    pairs = p4d.make_pairs(3)
+    t_fwd = cuda_ms(lambda: p4d.run_pairwise(model, images, pairs), reps=5)
+    total, top = device_top(lambda: p4d.run_pairwise(model, images, pairs),
+                            8)[:2]
+    flash_ms = sum(ms for ms, name, _ in top if "fwd_kernel" in name)
+    split = "; ".join(f"{name} {ms:.2f} ms ({ms / total:.1%}, {c}x)"
+                      for ms, name, c in top) if total > 0 else \
+        "no device time recorded"
+    log(f"DUSt3R pairwise forward, 3 frames (6 pairs, 12 images through the "
+        f"encoder) at 512²: {t_fwd:.3f} ms (CUDA events, median of 5); under "
+        f"torch.profiler {total:.2f} ms of device time, the flash kernel "
+        f"{flash_ms:.2f} ms of it; the eight operations with the most: "
+        f"{split}")
+    results["dust3r_forward"] = dict(ms=t_fwd, device_ms=total,
+                                     flash_ms=flash_ms)
+    held = []
+    for shape in sorted(shapes):
+        r = fwd_case(shape, gen_t, timed=shape[0] in (6, 12))
+        held.append(dict(shape=shape, err=r["err"], **r.get("ms", {}),
+                         bound_ms=r["bound"][0]))
+    results["flash_fwd_dust3r"] = held
+    del model, images
+    torch.cuda.empty_cache()
+
+
+def d8_check(shape, gen_t):
+    """The D = 8 forward at ``shape`` bit for bit the D = 16 instance on q,
+    k and v zero-padded to 16 columns (o's first 8 columns and lse; the
+    padded o's last 8 exactly 0), with the same scale 1/√8; then
+    fwd_case's bound against the plain version, timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from regen3d_tpu_torch.ops import attention as att
+
+    b, h, sq, sk, d = shape
+    q = torch.randn((b, h, sq, d), generator=gen_t, device="cuda")
+    k, v = (torch.randn((b, h, sk, d), generator=gen_t, device="cuda")
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    pad = lambda t: F.pad(t, (0, 16 - d)).contiguous()
+    with torch.no_grad():
+        o, lse = att.flash_attention_fwd(q, k, v)
+        o16, lse16 = att.flash_attention_fwd(pad(q), pad(k), pad(v),
+                                             scale=1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    same = (torch.equal(o, o16[..., :d].contiguous())
+            and torch.equal(lse, lse16)
+            and float(o16[..., d:].abs().max()) == 0.0)
+    if not same:
+        raise AssertionError(f"flash_fwd D = 8 at {shape}: not bit for bit "
+                             f"the D = 16 instance on zero-padded inputs")
+    return fwd_case(shape, gen_t)
+
+
+def baselines_run(name, run, results, spies=()):
+    """One baseline run on the card with its stages timed and the flash
+    forward's shapes recorded; returns (seconds, stages, launches,
+    shapes)."""
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.pipeline import baseline_dpa, baseline_midi
+    from regen3d_tpu_torch.pipeline.phase3_assets import AssetGenerator
+
+    stages = {}
+    saved = _timed_patches(stages, [
+        (baseline_midi, "detect_and_segment", "detect"),
+        (baseline_dpa, "detect_and_segment", "detect"),
+        (AssetGenerator, "generate_sdf_batch", "generate"),
+        (baseline_midi, "layout_meshes", "mesh+layout"),
+        (baseline_dpa, "inpaint_objects", "inpaint"),
+        (baseline_dpa, "extract_and_clean", "mesh"),
+        (baseline_dpa, "estimate_depth", "depth"),
+        (baseline_dpa, "fit_poses", "fit"),
+        *spies])
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with recording_flash_shapes() as shapes:
+            out = run()
+    finally:
+        _restore(saved)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    results[f"{name}_launches"] = launches
+    return out, total, {k: round(sum(v), 4) for k, v in stages.items()}, \
+        launches, shapes
+
+
+def baseline_gates(midi_glb, dpa_glb, cfg):
+    """The baselines' artifact contract: the MIDI scene GLB (meshes in
+    front of the camera, finite) with segmentation.png, every DPA stage
+    directory filled and its registered scene finite; returns (failures,
+    faces per object of each)."""
+    import os
+
+    import numpy as np
+
+    from regen3d_tpu_torch.pipeline.baseline_dpa import STAGES
+    from regen3d_tpu_torch.utils.glb import load_glb
+
+    bad, faces = [], {}
+    if midi_glb is not None:
+        m = load_glb(midi_glb).meshes
+        faces["midi"] = [len(x.faces) for x in m]
+        if not m or not all(np.isfinite(x.vertices).all()
+                            and x.vertices[:, 2].min() > 0 for x in m):
+            bad.append(f"MIDI scene {midi_glb}: {faces['midi']}")
+        if not os.path.exists(os.path.join(cfg.path("midi_output"),
+                                           "segmentation.png")):
+            bad.append("MIDI segmentation.png missing")
+    if dpa_glb is not None:
+        m = load_glb(dpa_glb).meshes
+        faces["dpa"] = [len(x.faces) for x in m]
+        if not m or not all(np.isfinite(x.vertices).all() for x in m):
+            bad.append(f"DPA scene {dpa_glb}: {faces['dpa']}")
+        for stage in STAGES:
+            if not os.listdir(os.path.join(cfg.path("dpa_output"), stage)):
+                bad.append(f"DPA stage {stage} empty")
+    return bad, faces
+
+
+def phase_alternates(results):
+    """Phase 4 under Use_VGGT: false and the MIDI and DPA baselines (-p 10,
+    -p 11): the small DUSt3R and the aligner on the card (dust3r_small_
+    checks); DUSt3R at full width (dust3r_full); both baselines through
+    the port's orchestrator on the bus's 960×1280 input with no generator
+    (the random-init tiny one: its condition encoder's heads of 8 run the
+    flash forward's D = 8 instance), octree_resolution_hy capped at
+    ALT_OCTREE_CLI; each D = 8 shape the runs gave the kernel held bit for
+    bit against D = 16 on zero-padded inputs and under fwd_error's bound,
+    timed beside SDPA; then both with a full-width random-init generator
+    passed in (DiTConfig.base(), cross_instance for MIDI; MIDI in box mode
+    on ALT_MIDI_BOXES of the bus's objects; octree_resolution_hy capped at
+    ALT_OCTREE_FULL); after them, every other flash shape of the four runs
+    held against the plain version (fwd_case), the full-width ones timed.
+    Each run timed by stage and gated on its artifacts; DPA's raster path
+    and silhouette launches printed and gated."""
+    import os
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch import orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.pipeline import baseline_dpa, baseline_midi
+    from regen3d_tpu_torch.pipeline import pose_fit
+    from regen3d_tpu_torch.pipeline.phase3_assets import AssetGenerator
+    from regen3d_tpu_torch.utils.image import mask_bbox, mask_from_finding
+
+    t_phase = time.perf_counter()
+    info = {k: results["ptxas"].get(f"fwd_kernel<8, 0, {s}>")
+            for k, s in (("unsplit", "false"), ("split", "true"))}
+    log(f"ptxas, the D = 8 forward instances: {info}")
+    if not all(info.values()):
+        raise AssertionError(f"the D = 8 forward instances: {info}")
+    results["d8_ptxas"] = info
+    gen_t = torch.Generator(device="cuda").manual_seed(8)
+    results["dust3r_small"] = dust3r_small_checks()
+    dust3r_full(results, gen_t)
+
+    bus = ROOT / "build" / "bus" / "bus"
+    root = ROOT / "build" / "alt" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shutil.copy(bus / "input.png", root / "input.png")
+    cfg = default_config(str(root / "output"),
+                         input_image=str(root / "input.png"),
+                         octree_resolution_hy=ALT_OCTREE_CLI)
+    fit_info = {}
+
+    def fit_spy(init, batch, cam, fit_cfg, _fit=baseline_dpa.fit_poses):
+        fit_info["path"] = pose_fit.raster_path(fit_cfg, batch.faces.shape[1],
+                                                "cuda")
+        fit_info["objects"] = int(batch.faces.shape[0])
+        return _fit(init, batch, cam, fit_cfg)
+
+    runs = {}
+    run_shapes = set()   # every flash shape of the four baseline runs
+    for phase, name in ((10, "midi_cli"), (11, "dpa_cli")):
+        saved_fit = baseline_dpa.fit_poses
+        baseline_dpa.fit_poses = fit_spy
+        try:
+            _, total, stages, launches, shapes = baselines_run(
+                name, lambda: orchestrator.run_phases(cfg, [phase],
+                                                      device="cuda"), results)
+        finally:
+            baseline_dpa.fit_poses = saved_fit
+        runs[name] = dict(total=total, stages=stages, launches=launches)
+        run_shapes |= shapes
+        if not any(s[-1] == 8 for s in shapes):
+            raise AssertionError(f"{name}: no D = 8 flash shape in {shapes}")
+    bad, faces = baseline_gates(
+        cfg.path("glb_scene_path_midi"),
+        os.path.join(cfg.path("dpa_output"), "final_registration",
+                     "scene.glb"), cfg)
+    dpa = runs["dpa_cli"]["launches"]
+    iters = int(cfg["dpa_iterations"])
+    if fit_info.get("path") != "edge_kernel" or \
+            dpa["silhouette_fwd"] != iters + 1 or \
+            dpa["silhouette_bwd"] != iters:
+        bad.append(f"DPA fit: {fit_info}, launches {dpa}")
+    for name, r in runs.items():
+        log(f"{name} (run_phases, no generator: the tiny one; octree "
+            f"{ALT_OCTREE_CLI}): {r['total']:.3f} s; by stage (s) "
+            f"{r['stages']}; launches {r['launches']}")
+    log(f"baselines from the CLI: faces per object {faces}; DPA fit "
+        f"{fit_info}, silhouette launches {dpa['silhouette_fwd']} forward, "
+        f"{dpa['silhouette_bwd']} backward")
+    if bad:
+        raise AssertionError("baselines from the CLI: " + "; ".join(bad))
+    d8 = []
+    for shape in sorted(s for s in run_shapes if s[-1] == 8):
+        r = d8_check(shape, gen_t)
+        d8.append(dict(shape=shape, err=r["err"], err_lse=r["err_lse"],
+                       sdpa_err=r["sdpa_err"], bound_ms=r["bound"][0],
+                       bound_by=r["bound"][1], **r["ms"]))
+    results["flash_fwd_d8"] = d8
+    log(f"flash_fwd D = 8 at the baselines' shapes, bit for bit the D = 16 "
+        f"instance on zero-padded inputs: {d8}")
+
+    # full width: a generator passed in
+    root = ROOT / "build" / "alt" / "full"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shutil.copy(bus / "input.png", root / "input.png")
+    bus_art = Artifacts(default_config(str(bus / "output")))
+    boxes = [mask_bbox(mask_from_finding(os.path.join(
+        bus_art.findings_fullsize, f"{s}.png")))
+        for s in bus_art.list_findings(full_size=True)
+        if not s.startswith("floor")][:ALT_MIDI_BOXES]
+    (root / "input.boxes.txt").write_text(
+        "".join(f"{x0} {y0} {x1} {y1}\n" for x0, y0, x1, y1 in boxes))
+    cfg = default_config(str(root / "output"),
+                         input_image=str(root / "input.png"), seg_mode="box",
+                         octree_resolution_hy=ALT_OCTREE_FULL)
+    full = {}
+    for name, module, cross in (("midi_full", baseline_midi, True),
+                                ("dpa_full", baseline_dpa, False)):
+        t0 = time.perf_counter()
+        gen = AssetGenerator.random_init(
+            torch.Generator(device="cuda").manual_seed(31), tiny=False,
+            cross_instance=cross, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        out, total, stages, launches, shapes = baselines_run(
+            name, lambda: module.run(cfg, generator=gen), results)
+        full[name] = out
+        run_shapes |= shapes
+        log(f"{name} (DiTConfig.base(){', cross_instance' if cross else ''}"
+            f", random weights from a seed, built in {t_build:.1f} s; octree "
+            f"{ALT_OCTREE_FULL}"
+            f"{f', box mode on {len(boxes)} objects' if cross else ''}): "
+            f"{total:.3f} s; by stage (s) {stages}; flash shapes "
+            f"{sorted(shapes)}; launches {launches}")
+        if launches["flash_fwd"] == 0:
+            raise AssertionError(f"{name}: no flash launch")
+        del gen
+        torch.cuda.empty_cache()
+    bad, faces = baseline_gates(full["midi_full"], full["dpa_full"], cfg)
+    log(f"baselines at full width: faces per object {faces}")
+    if bad or len(faces["midi"]) != len(boxes):
+        raise AssertionError(f"baselines at full width: {bad}, {faces}")
+    # every other shape of the four runs against the plain version; the
+    # full-width generators' (head dims 64 and 96) timed beside SDPA
+    held = []
+    for shape in sorted(s for s in run_shapes if s[-1] != 8):
+        r = fwd_case(shape, gen_t, timed=shape[-1] >= 64)
+        held.append(dict(shape=shape, err=r["err"], err_lse=r["err_lse"],
+                         sdpa_err=r["sdpa_err"], bound_ms=r["bound"][0],
+                         bound_by=r["bound"][1], **r.get("ms", {})))
+    results["flash_fwd_baselines"] = held
+    log(f"flash_fwd at the baselines' other shapes, held against the plain "
+        f"version after the runs: {held}")
+    log(f"phase_alternates: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4772,6 +5381,7 @@ def main() -> int:
     phase_assets(results)
     phase_lpips(results)
     phase_segment(results, phase_sam(results))
+    phase_alternates(results)
     phase_dit(results)
     phase_sam_grad(results)
 

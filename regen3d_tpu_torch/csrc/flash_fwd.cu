@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores: plain
-// (head dims 16, 32, 64, 96 and 128) and with SAM's factored key-grid bias
+// (head dims 8, 16, 32, 64, 96 and 128) and with SAM's factored key-grid bias
 // (D = 80). bf16 q, k, v and o; f32 bias factors; f32 row logsumexp in the
 // natural log, which the backward kernels (flash_bwd.cu) read.
 //
@@ -67,6 +67,20 @@
 //   32 × 32, a kw that does not divide 64) the block keeps its rows of both
 //   factors in shared memory and each element indexes them.
 //
+// * D = 8 (the random-init tiny generator's condition encoder, 4 heads of
+//   8, which the MIDI and DPA baselines build without a checkpoint) is
+//   below mma.sync's depth of 16. Its instance computes at width
+//   DC<8> = 16 in shared memory and registers, the D = 16 tiling: the
+//   copies of q, k and v fill each row's second 16-byte chunk with zeros
+//   (cp.async with no source bytes), so q·kᵀ adds exact zeros and s is
+//   the same as at D = 8;
+//   p·v skips the second 8-column tile of o, whose v columns are zero, and
+//   the store writes o's 8 columns. Nothing is padded in device memory:
+//   q, k, v and o are (bh, S, 8). On zero-padded inputs the D = 16
+//   instance does the same arithmetic, so o's first 8 columns and lse
+//   agree with it bit for bit. At the baselines' shapes (a few objects'
+//   16 tokens, 4 heads) the launch bounds it, not bytes or operations.
+//
 // Shared memory passes 48 KB, so the launches opt in with
 // cudaFuncSetAttribute.
 
@@ -82,6 +96,10 @@ constexpr int GRID_ANY = 2;   // grid bias, any (kh, kw) with kh·kw = Sk
 constexpr int FWD_BN = 64;    // keys of a warp's tile
 constexpr float LN2 = 0.6931471805599453f;
 
+// the width a head dim D is computed at: mma.sync's depth is 16
+template <int D>
+constexpr int DC = D < 16 ? 16 : D;
+
 // The block's tiling at head dim D, SPLIT: the keys split across the warps.
 template <int D, bool SPLIT>
 struct Fwd {
@@ -91,14 +109,17 @@ struct Fwd {
   static constexpr int KT = SPLIT ? 4 * FWD_BN : FWD_BN;     // keys a stage
 };
 
+// D is the head dim of q, k, v and o in device memory; W = DC<D> the width
+// of the tiles and fragments
 template <int D, int BIAS, bool SPLIT>
 __global__ void __launch_bounds__(TC_NT)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, GridBias bias, bf16* __restrict__ o,
            float* __restrict__ lse, int sq, int sk, float scale) {
-  using F = Fwd<D, SPLIT>;
+  constexpr int W = DC<D>;
+  using F = Fwd<W, SPLIT>;
   constexpr int MT = F::MT, BM = F::BM, KT = F::KT, BN = FWD_BN;
-  constexpr int S = Tile<D>::STRIDE;
+  constexpr int S = Tile<W>::STRIDE;
   constexpr bool GB = BIAS != NO_BIAS;
   static_assert(!(GB && SPLIT), "the grid bias runs unsplit");
   const int kh = bias.kh, kw = bias.kw;
@@ -132,7 +153,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // group 0: the Q tile and the bias slabs; group 1: the first K/V tile
-  load_tile<D, F::QROWS>(qs, qb, q0, sq, tid);
+  load_tile<W, F::QROWS, D>(qs, qb, q0, sq, tid);
   if constexpr (GB) {
     for (int r = 0; r < BM; r += TC_ROWS) {
       load_rows_f32(ws + r * wst, wst, bias.w + (size_t)bh * sq * kw, kw, 0,
@@ -143,26 +164,26 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   cp_async_commit();
-  load_tile<D, KT>(ks, kb, 0, sk, tid);
-  load_tile<D, KT>(vs, vb, 0, sk, tid);
+  load_tile<W, KT, D>(ks, kb, 0, sk, tid);
+  load_tile<W, KT, D>(vs, vb, 0, sk, tid);
   if constexpr (BIAS == GRID_ROW) load_hcol(0, 0);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();  // every thread's copies of group 0 are in
 
-  uint32_t qa[MT][D / 16][4];
+  uint32_t qa[MT][W / 16][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      load_a<D>(qa[mt][kk], qs, w0 + mt * 16, kk * 16, lane);
+    for (int kk = 0; kk < W / 16; ++kk)
+      load_a<W>(qa[mt][kk], qs, w0 + mt * 16, kk * 16, lane);
 
-  float acc[MT][D / 8][4];
+  float acc[MT][W / 8][4];
   float m[MT][2], l[MT][2];  // running max (log2 units) and sum, rows lo, hi
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
       acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
     m[mt][0] = m[mt][1] = -INFINITY;
     l[mt][0] = l[mt][1] = 0.f;
@@ -173,8 +194,8 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < nt; ++t) {
     const int st = t & 1;
     if (t + 1 < nt) {  // the next K/V tile into the other stage
-      load_tile<D, KT>(ks + (st ^ 1) * KT * S, kb, (t + 1) * KT, sk, tid);
-      load_tile<D, KT>(vs + (st ^ 1) * KT * S, vb, (t + 1) * KT, sk, tid);
+      load_tile<W, KT, D>(ks + (st ^ 1) * KT * S, kb, (t + 1) * KT, sk, tid);
+      load_tile<W, KT, D>(vs + (st ^ 1) * KT * S, vb, (t + 1) * KT, sk, tid);
       if constexpr (BIAS == GRID_ROW) load_hcol(st ^ 1, t + 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -193,11 +214,11 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < BN / 8; ++j)
         s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < W / 16; ++kk) {
 #pragma unroll
       for (int n = 0; n < BN; n += 16) {
         uint32_t kf[4];
-        load_b_nk<D>(kf, kt, n, kk * 16, lane);
+        load_b_nk<W>(kf, kt, n, kk * 16, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma(s[mt][n / 8], qa[mt][kk], kf[0], kf[1]);
@@ -288,7 +309,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[mt][0] = l[mt][0] * a_lo + rs_lo;
       l[mt][1] = l[mt][1] * a_hi + rs_hi;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < W / 8; ++j) {
         acc[mt][j][0] *= a_lo;
         acc[mt][j][1] *= a_lo;
         acc[mt][j][2] *= a_hi;
@@ -297,17 +318,18 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // o += p·v: depth = the tile's keys, columns = D; each V fragment feeds
-    // MT products
+    // MT products (at D = 8 the second 8-column tile, all zeros, is skipped)
 #pragma unroll
     for (int i = 0; i < BN / 16; ++i) {
 #pragma unroll
-      for (int n = 0; n < D; n += 16) {
+      for (int n = 0; n < W; n += 16) {
         uint32_t vf[4];
-        load_b_kn<D>(vf, vt, i * 16, n, lane);
+        load_b_kn<W>(vf, vt, i * 16, n, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma(acc[mt][n / 8], pa[mt][i], vf[0], vf[1]);
-          mma(acc[mt][n / 8 + 1], pa[mt][i], vf[2], vf[3]);
+          if (W == D || n + 8 < D)
+            mma(acc[mt][n / 8 + 1], pa[mt][i], vf[2], vf[3]);
         }
       }
     }
@@ -327,12 +349,12 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the four warps' (m, l, o) of the same 16 rows through the free ring,
     // in fragment order; warp 0 combines them in warp order
     float* cml = reinterpret_cast<float*>(ks);  // [4][32][4]: m, l lo and hi
-    float* cacc = cml + 4 * 32 * 4;              // [4][D / 8][32][4]
+    float* cacc = cml + 4 * 32 * 4;              // [4][W / 8][32][4]
     *reinterpret_cast<float4*>(cml + (warp * 32 + lane) * 4) =
         make_float4(m[0][0], m[0][1], l[0][0], l[0][1]);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float4*>(cacc + ((warp * (D / 8) + j) * 32 + lane) *
+    for (int j = 0; j < W / 8; ++j)
+      *reinterpret_cast<float4*>(cacc + ((warp * (W / 8) + j) * 32 + lane) *
                                             4) =
           make_float4(acc[0][j][0], acc[0][j][1], acc[0][j][2], acc[0][j][3]);
     __syncthreads();
@@ -354,13 +376,13 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[0][h] = sum;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float sum = 0.f;
 #pragma unroll
         for (int w = 0; w < 4; ++w)
-          sum += cacc[((w * (D / 8) + j) * 32 + lane) * 4 + e] * f[w][e >> 1];
+          sum += cacc[((w * (W / 8) + j) * 32 + lane) * 4 + e] * f[w][e >> 1];
         acc[0][j][e] = sum;
       }
   }
@@ -373,15 +395,15 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float l_lo = fmaxf(l[mt][0], 1e-30f), l_hi = fmaxf(l[mt][1], 1e-30f);
     const float i_lo = 1.f / l_lo, i_hi = 1.f / l_hi;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       acc[mt][j][0] *= i_lo;
       acc[mt][j][1] *= i_lo;
       acc[mt][j][2] *= i_hi;
       acc[mt][j][3] *= i_hi;
     }
     const int r0 = w0 + mt * 16;
-    store_rows<D>(acc[mt], qs, r0, o + (size_t)bh * sq * D, q0 + r0, sq,
-                  lane);
+    store_rows<W, D>(acc[mt], qs, r0, o + (size_t)bh * sq * D, q0 + r0, sq,
+                     lane);
     if (t4 == 0) {
       const int r_lo = q0 + r0 + g4, r_hi = r_lo + 8;
       if (r_lo < sq) lb[r_lo] = (m[mt][0] + log2f(l_lo)) * LN2;
@@ -394,8 +416,8 @@ template <int D, int BIAS, bool SPLIT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        GridBias gb, void* o, void* lse, int bh, int sq, int sk,
                        float scale, cudaStream_t stream) {
-  using F = Fwd<D, SPLIT>;
-  size_t smem = sizeof(bf16) * (F::QROWS + 4 * F::KT) * Tile<D>::STRIDE;
+  using F = Fwd<DC<D>, SPLIT>;
+  size_t smem = sizeof(bf16) * (F::QROWS + 4 * F::KT) * Tile<DC<D>>::STRIDE;
   if (BIAS != NO_BIAS) smem += sizeof(float) * F::BM * gb_dq_stride(gb.kw);
   if (BIAS == GRID_ROW) smem += sizeof(float) * 2 * F::BM;
   if (BIAS == GRID_ANY) smem += sizeof(float) * F::BM * gb_dq_stride(gb.kh);
@@ -438,6 +460,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 8: return (int)launch_plain<8>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 16: return (int)launch_plain<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 32: return (int)launch_plain<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 64: return (int)launch_plain<64>(q, k, v, o, lse, bh, sq, sk, scale, st);

@@ -130,20 +130,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [r0, r0 + ROWS) of a [n][D] bf16 array into a tile laid out
-// by Tile<D>; rows at or past n are zero-filled.
-template <int D, int ROWS>
+// Copy rows [r0, r0 + ROWS) of a [n][DG] bf16 array into a tile laid out
+// by Tile<D>; rows at or past n are zero-filled, and so are the columns at
+// or past DG (DG < D: a head dim below the tensor cores' depth of 16,
+// widened in shared memory only).
+template <int D, int ROWS, int DG = D>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
                                           int n, int tid) {
   constexpr int CPR = D / 8;
   static_assert(ROWS * CPR % TC_NT == 0, "whole chunks per thread");
+  static_assert(DG % 8 == 0 && DG <= D, "whole chunks of the tile's rows");
 #pragma unroll
   for (int it = 0; it < ROWS * CPR / TC_NT; ++it) {
     const int i = tid + it * TC_NT;
     const int r = i / CPR, c = i % CPR;
-    const bool in = r0 + r < n;
+    bool in = r0 + r < n;
+    int col = c * 8;
+    if constexpr (DG < D) {
+      in = in && c < DG / 8;
+      col = in ? col : 0;
+    }
     cp_async16(tile + Tile<D>::off(r, c * 8),
-               src + (size_t)(in ? r0 + r : 0) * D + c * 8, in);
+               src + (size_t)(in ? r0 + r : 0) * DG + col, in);
   }
 }
 
@@ -172,9 +180,9 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile,
 }
 
 // Write a warp's 16 × D f32 accumulators as bf16 into its rows r0.. of a
-// tile, then copy those rows to dst rows [g0, g0 + 16) below n with
-// 16-byte stores.
-template <int D>
+// tile, then copy the first DG columns of those rows to dst ([n][DG]) rows
+// [g0, g0 + 16) below n with 16-byte stores.
+template <int D, int DG = D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
                                            bf16* tile, int r0, bf16* dst,
                                            int g0, int n, int lane) {
@@ -194,8 +202,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
   for (int it = 0; it < 16 * CPR / 32; ++it) {
     const int i = lane + it * 32;
     const int r = i / CPR, c = i % CPR;
-    if (g0 + r < n)
-      *reinterpret_cast<uint4*>(dst + (size_t)(g0 + r) * D + c * 8) =
+    if (g0 + r < n && (DG == D || c < DG / 8))
+      *reinterpret_cast<uint4*>(dst + (size_t)(g0 + r) * DG + c * 8) =
           *reinterpret_cast<const uint4*>(tile + Tile<D>::off(r0 + r, c * 8));
   }
 }

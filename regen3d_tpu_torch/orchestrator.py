@@ -3,16 +3,18 @@
 
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
-card (``cuda``, the default) or ``cpu``. Phases 1 to 9 are ported; asking
-for phase 10 or 11 raises before anything runs. Phase 1 runs weightless,
+card (``cuda``, the default) or ``cpu``. Every phase is ported, the MIDI
+and DPA baselines (10 and 11) too. Phase 1 runs weightless,
 as the JAX CLI's does (no model object is loaded from a checkpoint yet):
 the k-means proposer, the findings and the offline depth prior. Phase 2
 runs on the host (the offline inpainter without an API key). Phase 3 loads
 ``checkpoints/shape_distilled.npz`` unless ``shape_checkpoint`` names
-another generator. Phase 4 needs a VGGT model object, which no checkpoint
-reader supplies yet: called from the CLI it raises as the JAX package's
-does. Phase 8 renders in software on the device unless a ``blender``
-executable is on PATH.
+another generator. Phase 4 needs a VGGT model object (under ``Use_VGGT:
+false`` a DUSt3R one), which no checkpoint reader supplies yet: called
+from the CLI it raises as the JAX package's does. Phase 8 renders in
+software on the device unless a ``blender`` executable is on PATH. Phases
+10 and 11 run weightless, as the JAX CLI's do: the k-means proposer for
+segmentation and the random-init tiny generator.
 """
 
 from __future__ import annotations
@@ -44,10 +46,11 @@ def _phase3(cfg: Config, device) -> None:
 
 def _phase4(cfg: Config, device) -> None:
     if not bool(cfg.get("Use_VGGT", True)):
-        # the reference's dust3r variant (run.py:422-433)
-        raise NotImplementedError(
-            "Use_VGGT: false runs phase4_dust3r (DUSt3R pairwise stereo), "
-            "which is not ported yet")
+        # the reference's dust3r variant (run.py:422-433): pairwise stereo
+        # and global alignment instead of VGGT
+        from regen3d_tpu_torch.pipeline import phase4_dust3r
+        phase4_dust3r.run(cfg)
+        return
     from regen3d_tpu_torch.pipeline import phase4_camera
     phase4_camera.run(cfg, device=device)
 
@@ -77,6 +80,16 @@ def _phase9(cfg: Config, device) -> None:
     phase9_eval.run(cfg, device=device)
 
 
+def _phase10(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import baseline_midi
+    baseline_midi.run(cfg, device=device)
+
+
+def _phase11(cfg: Config, device) -> None:
+    from regen3d_tpu_torch.pipeline import baseline_dpa
+    baseline_dpa.run(cfg, device=device)
+
+
 PHASES: Dict[int, tuple] = {
     1: ("segmentation (detector + SAM → findings)", _phase1),
     2: ("generative inpainting (amodal + empty room)", _phase2),
@@ -87,8 +100,8 @@ PHASES: Dict[int, tuple] = {
     7: ("scene assembly + background mesh + ICP", _phase7),
     8: ("rendering", _phase8),
     9: ("evaluation", _phase9),
-    10: ("MIDI-3D comparison baseline", None),
-    11: ("DeepPriorAssembly comparison baseline", None),
+    10: ("MIDI-3D comparison baseline", _phase10),
+    11: ("DeepPriorAssembly comparison baseline", _phase11),
 }
 
 
@@ -102,8 +115,6 @@ def run_phases(cfg: Config, phases: List[int],
     for p in todo:
         if p not in PHASES:
             raise ValueError(f"unknown phase {p}")
-        if PHASES[p][1] is None:
-            raise NotImplementedError(f"phase {p} is not ported yet")
     timings: Dict[int, float] = {}
     total0 = time.time()
     for p in todo:

@@ -13,7 +13,9 @@ coloured from the object image and written to ``output/3D/<name>/<name>.glb``.
 All objects go through the generator together, in segments of at most 8.
 The modules run eagerly under ``torch.no_grad()`` on ``device``; the noise
 comes from an explicit ``torch.Generator``. The JAX package pads the batch
-to buckets of 4 for its compile cache; the port needs no padding. The
+to buckets of 4 for its compile cache; the port pads only under
+``cross_instance``, where the copies join the instance attention and so
+change every instance's result. The
 default generator is the committed ``checkpoints/shape_distilled.npz``
 (``pipeline/shape_distill.py``), loaded on ``device``.
 
@@ -132,13 +134,15 @@ class AssetGenerator:
 
     @classmethod
     def random_init(cls, generator: torch.Generator, tiny: bool = False,
-                    image_size: int = 512,
+                    image_size: int = 512, cross_instance: bool = False,
                     device="cuda") -> "AssetGenerator":
         """The JAX package's random-init generator, drawn from
-        ``generator`` (on ``device``). The tiny one's condition encoder has
-        4 heads of 8, a head dim the flash kernel does not take: on the
-        card it raises at its first attention."""
+        ``generator`` (on ``device``); ``cross_instance`` gives the DiT the
+        MIDI instance-attention blocks. The tiny one's condition encoder
+        has 4 heads of 8, which the flash forward's D = 8 instance takes."""
         dit_cfg = DiTConfig.tiny() if tiny else DiTConfig.base()
+        if cross_instance:
+            dit_cfg = dataclasses.replace(dit_cfg, cross_instance=True)
         vae_cfg = dataclasses.replace(
             ShapeVAEConfig.tiny() if tiny else ShapeVAEConfig(),
             latent_tokens=dit_cfg.latent_tokens,
@@ -173,7 +177,10 @@ class AssetGenerator:
         least 128, dense otherwise. ``extra_cond_tokens`` (B, T, cond_dim)
         are appended to the condition (the MIDI adapter's box tokens).
         Batches over ``max_batch_per_program`` objects go in segments,
-        drawing their noise in turn from ``generator``."""
+        drawing their noise in turn from ``generator``. Under
+        ``cross_instance`` a segment is padded as the JAX package pads it
+        (copies of the last object up to a multiple of 4 past 2, with
+        their own noise), since its instances attend to the copies."""
         b_total = images.shape[0]
         if b_total > max_batch_per_program:
             outs = []
@@ -191,8 +198,13 @@ class AssetGenerator:
         if extra_cond_tokens is not None:
             extra = torch.as_tensor(extra_cond_tokens, device=dev)
             cond_tok = torch.cat([cond_tok, extra.to(cond_tok.dtype)], 1)
+        if self.dit_cfg.cross_instance and b_total > 2:
+            pad = 4 * ((b_total + 3) // 4) - b_total
+            cond_tok = torch.cat([cond_tok, cond_tok[-1:].expand(
+                pad, *cond_tok.shape[1:])])
         lat = dit_sample(self.dit, cond_tok, num_steps=num_steps,
                          guidance_scale=guidance, generator=generator)
+        lat = lat[:b_total]   # the decoder sees each object alone
         if resolution % 4 == 0 and resolution >= 128:
             # the two-level decode ships ~4 MB an object to the host, not
             # the dense 256³ volume's 67 MB
@@ -295,8 +307,8 @@ def run(cfg: Config, generator: Optional[AssetGenerator] = None,
         rng: Optional[torch.Generator] = None, device="cuda") -> List[str]:
     """Phase 3 on ``device``: one GLB per prepped object image; returns the
     names written. ``rng`` (on ``device``) defaults to the config's seed;
-    ``generator`` to :func:`load_default_generator`'s, else (on the CPU
-    only) a random-init tiny one."""
+    ``generator`` to :func:`load_default_generator`'s, else a random-init
+    tiny one."""
     if bool(cfg.get("use_multiview_texgen", False)) \
             or bool(cfg.get("bake_texture_atlas", False)):
         raise NotImplementedError(
@@ -314,14 +326,6 @@ def run(cfg: Config, generator: Optional[AssetGenerator] = None,
 
     if generator is None:
         generator = load_default_generator(cfg, device=device)
-    if generator is None and torch.device(device).type != "cpu":
-        # the fallback's tiny generator has heads of dim 8, which the flash
-        # kernel does not take
-        raise FileNotFoundError(
-            f"phase3: no shape checkpoint loads on {device} (shape_checkpoint "
-            f"{cfg.get('shape_checkpoint', '')!r}, default "
-            f"{default_shape_checkpoint()!r}); the random-init generator "
-            f"runs on the CPU only")
     if rng is None:
         rng = torch.Generator(device=device).manual_seed(
             int(cfg.get("seed", 1234567)))

@@ -30,6 +30,7 @@ from regen3d_tpu_torch.ops.filters import (
     estimate_normals,
     quantile_filter,
 )
+from regen3d_tpu_torch.pipeline.front3d import maybe_extract
 from regen3d_tpu_torch.transforms.conventions import blender_to_p3d
 from regen3d_tpu_torch.utils.image import erode_mask, mask_from_finding, save_image
 from regen3d_tpu_torch.utils.ply import load_ply, save_ply
@@ -61,10 +62,9 @@ def project_and_mask(camera: Camera, points_world: torch.Tensor,
 
 def run(cfg: Config, device="cuda") -> Dict[str, int]:
     """Extract per-object clouds for every finding. Returns {stem: n_points}."""
-    if bool(cfg.get("use_3d_front", False)):
-        raise NotImplementedError(
-            "use_3d_front (the 3D-FRONT camera extraction) is not ported")
     art = Artifacts(cfg)
+    # 3D-FRONT mode derives camera.npz from the dataset's JSON
+    maybe_extract(cfg)
     stems = art.list_findings(full_size=True)
     os.makedirs(art.masks_dir, exist_ok=True)
     os.makedirs(art.pointclouds_dir, exist_ok=True)

@@ -69,6 +69,10 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.models.saliency",
     "regen3d_tpu_torch.models.depth_anything",
     "regen3d_tpu_torch.pipeline.saliency_distill",
+    "regen3d_tpu_torch.models.dust3r", "regen3d_tpu_torch.pipeline.phase4_dust3r",
+    "regen3d_tpu_torch.pipeline.front3d",
+    "regen3d_tpu_torch.pipeline.baseline_midi",
+    "regen3d_tpu_torch.pipeline.baseline_dpa",
 ]
 
 
@@ -117,17 +121,20 @@ def test_weight_bridge_uses_every_leaf_once():
 
 
 @pytest.mark.parametrize("family", ["detector", "saliency",
-                                    "depth_anything"])
+                                    "depth_anything", "dust3r"])
 def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
-    """The phase-1 models' flax trees (shapes only, no compile) map leaf for
-    leaf onto the port's modules: the detector's ``Embed.embedding``
-    lands on the byte embedding, the transposed convolutions are named
-    per model and get mirrored taps."""
+    """The phase-1 models' and DUSt3R's flax trees (shapes only, no
+    compile) map leaf for leaf onto the port's modules: the detector's
+    ``Embed.embedding`` lands on the byte embedding, the transposed
+    convolutions are named per model and get mirrored taps, DUSt3R's
+    decoders' cross-attention kernels are transposed."""
+    from regen3d_tpu.models import dust3r as jd3
     from regen3d_tpu.models import depth_anything as jda
     from regen3d_tpu.models import detector as jdet
     from regen3d_tpu.models import saliency as jsal
     from regen3d_tpu_torch.models import depth_anything as tda
     from regen3d_tpu_torch.models import detector as tdet
+    from regen3d_tpu_torch.models import dust3r as td3
     from regen3d_tpu_torch.models import saliency as tsal
     from regen3d_tpu_torch.models.from_jax import (
         DEPTH_ANYTHING_CONV_TRANSPOSE,
@@ -154,6 +161,14 @@ def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
                                              device="cpu"), \
             SALIENCY_CONV_TRANSPOSE
         leaf, where = ("up8", "kernel"), "up8.weight"
+    elif family == "dust3r":
+        shapes = jax.eval_shape(
+            jd3.AsymmetricCroCo3DStereo(jd3.Dust3rConfig.tiny()).init, key,
+            jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 16, 16, 3)))
+        model, ct = td3.AsymmetricCroCo3DStereo(td3.Dust3rConfig.tiny(),
+                                                device="cpu"), frozenset()
+        leaf, where = ("dec2_1", "cross_attn", "k", "kernel"), \
+            "dec2_1.cross_attn.k.weight"
     else:
         shapes = jax.eval_shape(
             jda.DepthAnything(jda.DepthAnythingConfig.tiny()).init, key,
@@ -175,6 +190,8 @@ def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
     got = dict(model.named_parameters())[where].detach()
     if arr.ndim == 4:           # flax (H, W, I, O), taps mirrored
         arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif leaf[-1] == "kernel":  # a Dense kernel: flax (in, out)
+        arr = arr.T
     np.testing.assert_array_equal(       # in the parameter's dtype
         got.float().numpy(),
         torch.from_numpy(arr.copy()).to(got.dtype).float().numpy())

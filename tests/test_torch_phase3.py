@@ -413,12 +413,37 @@ def test_random_init_when_no_checkpoint_loads(tmp_path, ckpt, caplog):
         assert os.path.exists(art.asset_glb(name))
 
 
-def test_no_checkpoint_on_the_card_raises(tmp_path, ckpt):
-    """Off the CPU a missing ``shape_checkpoint`` raises, naming it, before
-    anything touches the device: the random-init generator's heads of dim 8
-    are below the flash kernel's smallest."""
-    _prepped_root(tmp_path, ckpt["imgs"])
+def test_no_checkpoint_on_the_card_raises(tmp_path, ckpt, monkeypatch):
+    """Without a checkpoint the card takes the random-init tiny generator,
+    as the CPU does (no FileNotFoundError any more): every head dim its
+    attentions give the flash forward passes the kernel's shape check, 8
+    (the condition encoder's, the D = 8 instance) among them. On a machine
+    without a card, ``run(device="cuda")`` raises torch's CUDA error:
+    nothing falls back to the CPU; on one with a card it writes every
+    object's GLB."""
+    from regen3d_tpu_torch.ops import attention as att
+
+    dims = set()
+    plain = att.attention_reference
+
+    def recorded(q, k, v, scale=None):
+        dims.add(q.shape[-1])
+        return plain(q, k, v, scale)
+
+    monkeypatch.setattr(att, "attention_reference", recorded)
+    g = tp3.AssetGenerator.random_init(torch.Generator().manual_seed(0),
+                                       tiny=True, device="cpu")
+    g.generate_sdf_batch(torch.Generator().manual_seed(0),
+                         torch.rand(1, 64, 64, 4), 1, 5.0, 16, 4096)
+    assert 8 in dims and dims <= set(att.FWD_KERNEL_HEAD_DIMS), dims
+    _, art, names = _prepped_root(tmp_path, ckpt["imgs"])
     missing = str(tmp_path / "missing.npz")
-    c = default_config(str(tmp_path / "output"), shape_checkpoint=missing)
-    with pytest.raises(FileNotFoundError, match="missing.npz"):
-        tp3.run(c, device="cuda")
+    c = default_config(str(tmp_path / "output"), shape_checkpoint=missing,
+                       num_inf_steps_hy=2, octree_resolution_hy=16)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tp3.run(c, device="cuda")
+    else:
+        assert tp3.run(c, device="cuda") == sorted(names)
+        for name in names:
+            assert os.path.exists(art.asset_glb(name))

@@ -8,8 +8,8 @@
   weights carried by ``load_from_jax``, on a square and a non-square
   PNG at ``conf_thres_value`` 1.0 with a point cap that bites: points and
   cameras within rtol/atol 1e-4, the same rows kept.
-- ``-p 4`` fails alike in both CLIs, with and without ``Use_VGGT``, before
-  anything is written.
+- ``-p 4`` fails alike in both CLIs, with and without ``Use_VGGT`` (the
+  DUSt3R phase), before anything is written.
 - The alignments within 1e-10, ``matrix_to_qvec`` within 1e-6 and COLMAP
   ``read(write(x))``.
 """
@@ -220,20 +220,18 @@ def _write_cfg(root, **over):
 
 @pytest.mark.parametrize("use_vggt", [True, False])
 def test_phase4_cli_fails_like_jax(tmp_path, use_vggt):
-    """Without a model, -p 4 raises in both CLIs before writing anything:
-    with Use_VGGT the same RuntimeError; without it the JAX package's
-    DUSt3R phase asks for a model and the port names phase4_dust3r, which
-    it has not ported."""
+    """Without a model, -p 4 raises in both CLIs before writing anything,
+    the same RuntimeError: with Use_VGGT the VGGT phase's, without it the
+    DUSt3R phase's (phase4_dust3r)."""
     j_cfg = _write_cfg(tmp_path / "j", Use_VGGT=use_vggt)
     t_cfg = _write_cfg(tmp_path / "t", Use_VGGT=use_vggt)
     with pytest.raises(RuntimeError, match="requires a") as j_err:
         jorch.main(["-p", "4", "--config", j_cfg])
-    err = (RuntimeError, "requires a VGGT model") if use_vggt else \
-        (NotImplementedError, "phase4_dust3r")
-    with pytest.raises(err[0], match=err[1]) as t_err:
+    want = "requires a VGGT model" if use_vggt else \
+        "dust3r phase 4 requires a model"
+    with pytest.raises(RuntimeError, match=want) as t_err:
         torch_orch.main(["-p", "4", "--config", t_cfg, "--device", "cpu"])
-    if use_vggt:
-        assert str(t_err.value) == str(j_err.value)
+    assert str(t_err.value) == str(j_err.value)
     for root in (tmp_path / "j", tmp_path / "t"):
         assert not (root / "output" / "pre_3D").exists()
 

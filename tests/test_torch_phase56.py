@@ -339,7 +339,8 @@ def test_phase6_edge_path_at_256x320(phase5, tmp_path, monkeypatch):
         np.testing.assert_allclose(_vertices(tr, stem), vj, atol=_fit_tol(vj))
 
 
-def test_cli_runs_phases_5_and_6_and_refuses_the_others(bus, tmp_path):
+def test_cli_runs_phases_5_and_6_and_refuses_the_others(bus, tmp_path,
+                                                       monkeypatch):
     import yaml
 
     root, stems = bus
@@ -349,10 +350,21 @@ def test_cli_runs_phases_5_and_6_and_refuses_the_others(bus, tmp_path):
                   early_stop_min_iterations=2, debug_save=True,
                   grid_rotation_steps=4)
     (work / "src" / "cfg.yaml").write_text(yaml.safe_dump(values))
-    with pytest.raises(NotImplementedError, match="phase 10 is not ported yet"):
-        orchestrator.main(["-p", "5", "6", "10", "--config",
+    # a phase the CLI does not know is refused before anything runs
+    with pytest.raises(ValueError, match="unknown phase 12"):
+        orchestrator.main(["-p", "5", "6", "12", "--config",
                            str(work / "src" / "cfg.yaml"), "--device", "cpu"])
     assert not (work / "output" / "masks").exists()
+    # the baselines are routed: -p 10 and -p 11 reach their runs
+    from regen3d_tpu_torch.pipeline import baseline_dpa, baseline_midi
+    called = []
+    for mod in (baseline_midi, baseline_dpa):
+        monkeypatch.setattr(mod, "run", lambda cfg, device, mod=mod:
+                            called.append((mod.__name__, device)))
+    orchestrator.main(["-p", "10", "11", "--config",
+                       str(work / "src" / "cfg.yaml"), "--device", "cpu"])
+    assert called == [(baseline_midi.__name__, "cpu"),
+                      (baseline_dpa.__name__, "cpu")]
     orchestrator.main(["-p", "5", "6", "--config",
                        str(work / "src" / "cfg.yaml"), "--device", "cpu"])
     out = work / "output"

@@ -347,6 +347,9 @@ def test_cli_runs_phases_5_6_7_9(tmp_path):
     assert {"chamfer_pcu", "fscore", "psnr", "ssim",
             "scene_chamfer_incl_bg"} <= set(metrics)
     assert all(np.isfinite(v) for v in metrics.values())
-    # phase 10 is still refused before anything runs
-    with pytest.raises(NotImplementedError, match="phase 10 is not ported yet"):
-        orchestrator.run_phases(default_config(str(o)), [7, 10], device="cpu")
+    # a phase the orchestrator does not know is refused before anything
+    # runs
+    before = os.path.getmtime(art.combined_scene_glb)
+    with pytest.raises(ValueError, match="unknown phase 12"):
+        orchestrator.run_phases(default_config(str(o)), [7, 12], device="cpu")
+    assert os.path.getmtime(art.combined_scene_glb) == before
