@@ -86,11 +86,11 @@ Phases, each reported on one line:
 7. phase 2 (the offline inpainter and prepare_for_3d on the bus's
    findings, timed; 8 prepped RGBA images and the empty room), then
    phase 3 (phase_assets) on the committed checkpoint: the generator on
-   the card against the CPU on the 4 objects it runs (condition tokens,
+   the card against the CPU on the 2 objects it runs (condition tokens,
    4 Euler steps, a 32³ dense and a 64³ two-level decode; max and mean
    errors); then phase3_assets.run at the defaults (50
    steps, guidance 5, the two-level 256³ decode) on phase 2's prepped
-   images of 4 of the bus's 8 objects, timed by stage and gated on a
+   images of 2 of the bus's 8 objects, timed by stage and gated on a
    GLB per object with colours in [0, 1] (a mesh, or the placeholder only
    where the committed generator gives that image and noise no surface
    on the card and in f32 and bf16 on the CPU), at least one mesh, and
@@ -120,7 +120,24 @@ Phases, each reported on one line:
    finding's five PNGs, depth.png, one encode and the launches (4
    grid-bias, 16 + 14 + 10 a saliency call + 12 flash), every flash shape
    of the run held against the plain version (those not timed above,
-   after it);
+   after it); then the checkpoint layer (phase_checkpoints): which of
+   tensorstore, safetensors and PIL the machine has, an orbax-shaped
+   directory and a JPEG refused naming the absent one; DetectorConfig(),
+   SaliencyConfig(), Depth-Anything-V2-Small, MattingUNet(base=32) and
+   LPIPS (random weights from seeds) written as the port's checkpoint
+   directories and run through detector_checkpoint, saliency_checkpoint,
+   depth_anything_checkpoint and matting_checkpoint (run_phases(cfg,
+   [1, 2])) and lpips_checkpoint (phase 9), the findings, depth.png,
+   prepped RGBA and metrics byte for byte those of the same models passed
+   in (prepare_for_3d's with the net for phase 2), the saliency key's
+   points through SAM-H; the matting net's alpha on the 960×1280 input on
+   the card against the CPU's f32 and its flash shape (1, 4, 4096, 4096,
+   32) timed; then VGGT-1B (through a bf16 .pt and load_torch_file, and
+   phase 4 with each model byte for byte), SAM-H, DUSt3R at 512's widths,
+   DiTConfig.base() and its MIDI variant, Depth-Anything-V2-Small and
+   LPIPS through the upstream key layouts (the port's inverse map, then
+   conversion.load_upstream into a fresh module): every tensor equal, one
+   forward bit for bit, parameter counts, unmapped keys and load seconds;
 9. the alternates and baselines (phase_alternates): the flash forward's
    D = 8 instances in ptxas's report; a small DUSt3R (heads of 16) on the
    card against the CPU, and the aligner on exact synthetic pairs on the
@@ -231,7 +248,7 @@ MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "phase1_launches", "dust3r_launches", "dust3r3_launches",
               "midi_cli_launches", "dpa_cli_launches", "midi_full_launches",
               "dpa_full_launches", "dit_launches", "dit_sample_launches",
-              "sam_grad_launches")
+              "sam_grad_launches", "checkpoint_launches", "matting_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -2837,11 +2854,12 @@ def phase_lpips(results):
     results["lpips_ms"] = ms
 
 
-# phase 3 runs on the first 4 of the bus's 8 objects (by name): at 8 it took
+# phase 3 runs on the first 2 of the bus's 8 objects (by name): at 8 it took
 # 378 s on an H100, 302 s of it the vertex-colour bake (3.3-6.6 M faces an
 # object, every pixel of a 256² view against every face) and 68 s marching
-# and the clean-up, all on the host or the plain rasterizer (PERF.md §6)
-ASSET_OBJECTS = 4
+# and the clean-up, all on the host or the plain rasterizer, and 115 s at 4
+# (PERF.md §6); 2 leave room for phase_checkpoints in the time limit
+ASSET_OBJECTS = 2
 # phase_assets: phase 3 on the committed checkpoint. The flash shapes its
 # run gives the kernel, (B, H, Sq, Sk, D) at D = 32 over ASSET_OBJECTS
 # objects: the DiT's self- and cross-attention over the guided batch (2 × n
@@ -5356,6 +5374,519 @@ def phase_alternates(results):
     log(f"phase_alternates: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase_checkpoints: the checkpoint layer at full width. The matting net
+# runs at 256², so its lowest level attends over 64² = 4,096 positions with
+# 4 heads of 32 (base 32 × 4 channels)
+MATTING_FLASH_SHAPE = (1, 4, 4096, 4096, 32)
+# the matting net on the card (bf16, kernels) against the same weights on
+# the CPU (f32, plain versions), on a 960×1280 picture, the alphas' 8-bit
+# levels apart: the mean within MATTING_MEAN_OVER_BF16 and the max within
+# MATTING_MAX_OVER_BF16 times the CPU's own bf16's (the zero-initialised
+# kernels drawn from N(0, 0.1²), so the alpha spreads over (0, 1) and bf16
+# rounding moves steep sigmoids by up to 20 levels: a first H100 run read
+# a max of 20 and a mean of 0.59)
+MATTING_MEAN_OVER_BF16 = 1.25
+MATTING_MAX_OVER_BF16 = 2.0
+# the families phase_checkpoints round-trips through the upstream layout
+UPSTREAM_FAMILIES = ("vggt", "sam", "dust3r", "dit", "midi",
+                     "depth_anything", "lpips")
+
+
+def _same_files(a, b, skip=()):
+    """The files under a and b but those under a directory named in
+    ``skip``: (the same relative paths in both, the paths whose bytes
+    differ)."""
+    def files(root):
+        return sorted(p.relative_to(root) for p in Path(root).rglob("*")
+                      if p.is_file() and not set(p.relative_to(root).parts)
+                      & set(skip))
+    fa, fb = files(a), files(b)
+    differ = [str(p) for p in fa if p in fb
+              and (Path(a) / p).read_bytes() != (Path(b) / p).read_bytes()]
+    return fa == fb and len(fa) > 0, differ
+
+
+def ckpt_packages(root):
+    """Which of tensorstore, safetensors and PIL the machine has; where
+    tensorstore is absent an orbax-shaped directory (manifest.ocdbt) must
+    raise ImportError naming it, where PIL is absent a JPEG given to
+    load_image_rgb likewise. Returns (presence, failures)."""
+    import importlib.util
+
+    from regen3d_tpu_torch.models.weights import load_checkpoint
+    from regen3d_tpu_torch.utils.image import load_image_rgb
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("tensorstore", "safetensors", "PIL")}
+    bad = []
+    if not have["tensorstore"]:
+        d = root / "orbax_shaped"
+        d.mkdir(parents=True)
+        (d / "manifest.ocdbt").write_bytes(b"")
+        (d / "_METADATA").write_text('{"tree_metadata": {}}')
+        try:
+            load_checkpoint(str(d))
+            bad.append("an orbax directory loaded without tensorstore")
+        except ImportError as e:
+            if "tensorstore" not in str(e):
+                bad.append(f"orbax without tensorstore: {e}")
+    if not have["PIL"]:
+        jpg = root / "photo.jpg"
+        jpg.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(16))
+        try:
+            load_image_rgb(str(jpg))
+            bad.append("a JPEG loaded without PIL")
+        except ImportError as e:
+            if "PIL" not in str(e) or "JPEG" not in str(e):
+                bad.append(f"JPEG without PIL: {e}")
+    return have, bad
+
+
+def ckpt_models(dev="cuda"):
+    """The config keys' models at full width, random weights from seeds:
+    DetectorConfig() (seed 1), SaliencyConfig() (2), Depth-Anything-V2-Small
+    (3), MattingUNet(base=32) (4, its zero-initialised kernels drawn from
+    N(0, 0.1²)) and LPIPS (5; its init draws on the host)."""
+    import torch
+
+    from regen3d_tpu_torch.models import depth_anything as da
+    from regen3d_tpu_torch.models import detector as det
+    from regen3d_tpu_torch.models import lpips
+    from regen3d_tpu_torch.models import saliency as sal
+    from regen3d_tpu_torch.models import unet
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    m = dict(detector=det.OpenVocabDetector(det.DetectorConfig(), device=dev),
+             saliency=sal.SaliencyTransformer(sal.SaliencyConfig(),
+                                              device=dev),
+             depth=da.DepthAnything(da.DepthAnythingConfig.small(),
+                                    device=dev),
+             matting=unet.MattingUNet(base=32, device=dev),
+             lpips=lpips.LPIPS(device=dev))
+    det.init_flax_style_(m["detector"], gen(1))
+    sal.init_flax_style_(m["saliency"], gen(2))
+    da.init_flax_style_(m["depth"], gen(3))
+    unet.init_flax_style_(m["matting"], gen(4))
+    unet.draw_zero_init_leaves_(m["matting"], gen(4), std=0.1)
+    lpips.init_flax_style_(m["lpips"], torch.Generator().manual_seed(5))
+    return m
+
+
+def ckpt_config_keys(results, sam, models, root, dev="cuda"):
+    """The five config keys at full width from the port's directories,
+    against the same models passed in directly: phase 1 (run, detector,
+    saliency net, Depth-Anything) then phase 2 (matting) through
+    run_phases(cfg, [1, 2]), the findings and depth.png byte for byte the
+    direct run's, every prepped RGBA byte for byte prepare_for_3d's with
+    the model; the saliency key's points through detect_and_segment with
+    SAM-H, masks equal; phase 9 with lpips_checkpoint, every metric equal.
+    Returns (stems, threshold, timings)."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from regen3d_tpu_torch import kernels, orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.models.lpips import make_lpips_fn
+    from regen3d_tpu_torch.pipeline import phase1_segmentation as p1
+    from regen3d_tpu_torch.pipeline import phase9_eval
+    from regen3d_tpu_torch.pipeline.depth_distill import save_depth_checkpoint
+    from regen3d_tpu_torch.pipeline.detector_distill import (
+        save_detector_checkpoint,
+    )
+    from regen3d_tpu_torch.pipeline.matting import MattingModel
+    from regen3d_tpu_torch.pipeline.phase2_inpaint import prepare_for_3d
+    from regen3d_tpu_torch.pipeline.saliency_distill import (
+        SaliencyModel,
+        save_saliency_checkpoint,
+    )
+    from regen3d_tpu_torch.models.weights import save_model
+    from regen3d_tpu_torch.utils.image import load_image_rgb, save_image
+
+    ck = root / "ckpt"
+    keys = dict(detector_checkpoint=str(ck / "detector"),
+                saliency_checkpoint=str(ck / "saliency"),
+                depth_anything_checkpoint=str(ck / "depth"),
+                matting_checkpoint=str(ck / "matting"))
+    t0 = time.perf_counter()
+    save_detector_checkpoint(keys["detector_checkpoint"], models["detector"])
+    save_saliency_checkpoint(keys["saliency_checkpoint"], models["saliency"])
+    save_depth_checkpoint(keys["depth_anything_checkpoint"], models["depth"])
+    MattingModel(models["matting"]).save(keys["matting_checkpoint"])
+    save_model(str(ck / "lpips"), models["lpips"])
+    t_save = time.perf_counter() - t0
+    bus_input = ROOT / "build" / "bus" / "bus" / "input.png"
+    roots = {n: root / n for n in ("direct", "keys")}
+    for r in roots.values():
+        r.mkdir(parents=True)
+        shutil.copy(bus_input, r / "input.png")
+    over = dict(use_points=True, point_method="saliency", points_per_object=1,
+                matting_base=32, eval_scene_incl_background=False)
+    saliency = SaliencyModel(models["saliency"])
+    t0 = time.perf_counter()
+    for threshold in (0.25, 0.1, 0.02):
+        shutil.rmtree(roots["direct"] / "output", ignore_errors=True)
+        cfg_d = default_config(str(roots["direct"] / "output"),
+                               input_image=str(roots["direct"] / "input.png"),
+                               threshold=threshold, **over)
+        stems = p1.run(cfg_d, detector=models["detector"],
+                       saliency_model=saliency, depth_model=models["depth"],
+                       device=dev)
+        if stems:
+            break
+    t_direct = time.perf_counter() - t0
+    cfg_k = default_config(str(roots["keys"] / "output"),
+                           input_image=str(roots["keys"] / "input.png"),
+                           threshold=threshold, **over, **keys)
+    kernels.reset_counts()
+    timings = orchestrator.run_phases(cfg_k, [1, 2], device=dev)
+    results["checkpoint_launches"] = dict(kernels.LAUNCHES)
+    bad = []
+    art_d, art_k = Artifacts(cfg_d), Artifacts(cfg_k)
+    phase2_dirs = (os.path.basename(art_k.inpaint_dir),
+                   os.path.basename(art_k.prepped_dir))
+    same, differ = _same_files(art_d.findings, art_k.findings,
+                               skip=phase2_dirs)
+    if not stems or not same or differ:
+        bad.append(f"phase 1 from the keys: {len(stems)} findings, the same "
+                   f"file list {same}, bytes differ in {differ[:5]}")
+    stems_k = art_k.list_findings()
+    matting = MattingModel(models["matting"])
+    prepped = sorted(f[:-4] for f in os.listdir(art_k.prepped_dir))
+    if prepped != sorted(stems_k):
+        bad.append(f"phase 2 prepped {prepped} of {stems_k}")
+    def prep(stem):     # in threads, as phase 2 runs it
+        out = root / "prep" / f"{stem}.png"
+        prepare_for_3d(os.path.join(art_k.inpaint_dir, f"{stem}.png"),
+                       str(out), size=512, matting=matting)
+        return out.read_bytes() == Path(art_k.prepped_dir,
+                                        f"{stem}.png").read_bytes()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        same_prep = dict(zip(prepped, pool.map(prep, prepped)))
+    t_prep = time.perf_counter() - t0
+    if not all(same_prep.values()):
+        bad.append(f"phase 2: the prepped RGBA not prepare_for_3d's with the "
+                   f"model: {[s for s, ok in same_prep.items() if not ok]}")
+    # the saliency key's effect: SAM-H's second pass on its points
+    image = load_image_rgb(str(roots["keys"] / "input.png"))
+    cfg_s = default_config(str(root / "sal"), threshold=threshold,
+                           saliency_checkpoint=keys["saliency_checkpoint"],
+                           **over)
+    got = p1.detect_and_segment(cfg_s, image, sam=sam,
+                                detector=models["detector"])
+    want = p1.detect_and_segment(cfg_s, image, sam=sam,
+                                 detector=models["detector"],
+                                 saliency_model=saliency)
+    if len(got) != len(want) or not got or any(
+            not np.array_equal(g.mask, w.mask) for g, w in zip(got, want)):
+        bad.append(f"saliency_checkpoint: {len(got)} masks against "
+                   f"{len(want)} with the model passed in, or some differ")
+    # phase 9: the bus's input against a render with noise
+    rng = np.random.default_rng(9)
+    render = np.clip(image.astype(int) + rng.integers(-20, 21, image.shape),
+                     0, 255).astype(np.uint8)
+    save_image(art_k.predicted_image, render)
+    m_keys = phase9_eval.run(cfg_k.with_overrides(
+        lpips_checkpoint=str(ck / "lpips")), device=dev)
+    m_direct = phase9_eval.run(cfg_k, lpips_fn=make_lpips_fn(models["lpips"]),
+                               device=dev)
+    if m_keys != m_direct or "lpips" not in m_keys:
+        bad.append(f"phase 9 with lpips_checkpoint {m_keys}, with the model "
+                   f"{m_direct}")
+    log(f"checkpoint keys at full width (the port's directories, written in "
+        f"{t_save:.2f} s): run_phases(cfg, [1, 2]) phase 1 "
+        f"{timings[1]:.3f} s, phase 2 {timings[2]:.3f} s against the direct "
+        f"phase 1 {t_direct:.3f} s (threshold {threshold}); "
+        f"{len(stems)} findings, depth.png and the findings byte for byte, "
+        f"{len(prepped)} prepped RGBA byte for byte prepare_for_3d's with "
+        f"the net ({t_prep:.3f} s); saliency points on SAM-H: {len(got)} "
+        f"masks equal; phase 9 lpips {m_keys.get('lpips')} equal; launches "
+        f"{results['checkpoint_launches']}")
+    if bad:
+        raise AssertionError("checkpoint keys: " + "; ".join(bad[:8]))
+    return stems, threshold
+
+
+def _upstream_family(name, dev="cuda"):
+    """(source module at full width with random weights from a seed, a
+    function that makes a fresh one, the forward's inputs, the
+    forward)."""
+    import dataclasses
+
+    import torch
+
+    from regen3d_tpu_torch.models import conversion
+
+    g = torch.Generator(device=dev).manual_seed(
+        UPSTREAM_FAMILIES.index(name) + 20)
+    gc = torch.Generator().manual_seed(7)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gc).to(dev)
+
+    if name == "vggt":
+        from regen3d_tpu_torch.models import vggt as m
+        build = lambda: m.VGGT(m.VGGTConfig(), device=dev)
+        init, args = m.init_flax_style_, (rand(1, 2, 518, 518, 3),)
+        fwd = lambda mod, x: mod(x)
+    elif name == "sam":
+        from regen3d_tpu_torch.models import sam as m
+        build = lambda: m.SAM(m.SamConfig(), device=dev)
+        init = m.init_flax_style_
+        args = (rand(1, 1024, 1024, 3), rand(1, 2, 2),
+                torch.ones((1, 2), device=dev),
+                torch.tensor([[[0.2, 0.2], [0.7, 0.8]]], device=dev))
+
+        def fwd(mod, img, pts, labs, box):
+            emb = mod.encode(img)
+            return (emb, *mod.decode(emb, pts, labs, box))
+    elif name == "dust3r":
+        from regen3d_tpu_torch.models import dust3r as m
+        build = lambda: m.AsymmetricCroCo3DStereo(m.Dust3rConfig(), device=dev)
+        init, args = m.init_flax_style_, (rand(1, 512, 512, 3),
+                                          rand(1, 512, 512, 3))
+        fwd = lambda mod, a, b: mod(a, b)
+    elif name in ("dit", "midi"):
+        from regen3d_tpu_torch.models import dit as m
+        c = dataclasses.replace(m.DiTConfig.base(),
+                                cross_instance=name == "midi")
+        build = lambda: m.ShapeDiT(c, device=dev)
+
+        def init(mod, gen):
+            m.init_flax_style_(mod, gen)
+            m.draw_zero_init_leaves_(mod, gen)
+        b = 4 if name == "midi" else 2
+        args = (torch.randn((b, c.latent_tokens, c.latent_dim),
+                            generator=gc).to(dev), rand(b),
+                torch.randn((b, 257, c.cond_dim), generator=gc).to(dev))
+        fwd = lambda mod, x, t, cond: mod(x, t, cond)
+    elif name == "depth_anything":
+        from regen3d_tpu_torch.models import depth_anything as m
+        build = lambda: m.DepthAnything(m.DepthAnythingConfig.small(),
+                                        device=dev)
+        init, args = m.init_flax_style_, (rand(1, 518, 518, 3),)
+        fwd = lambda mod, x: mod(x)
+    else:
+        from regen3d_tpu_torch.models import lpips as m
+        build = lambda: m.LPIPS(device=dev)
+        init, args = m.init_flax_style_, (rand(1, 256, 256, 3),
+                                          rand(1, 256, 256, 3))
+        fwd = lambda mod, a, b: mod(a, b)
+    src = build()
+    init(src, torch.Generator().manual_seed(25) if name == "lpips" else g)
+    return src, build, args, fwd
+
+
+def _outputs_equal(a, b):
+    import torch
+
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_outputs_equal(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_outputs_equal, a, b))
+    return torch.equal(a, b)
+
+
+def ckpt_upstream(results, root, dev="cuda"):
+    """Each of UPSTREAM_FAMILIES at full width: the source module (random
+    weights from a seed) → its flax tree → the upstream layout by the
+    port's inverse map → load_upstream into a fresh module, every tensor
+    torch.equal and one forward bit for bit the source's; VGGT-1B through
+    a torch.save'd .pt of bf16 tensors (deleted after) and load_torch_file,
+    then phase4_camera.run with each, the artifacts byte for byte. The .pt
+    holds bf16 tensors where bf16 holds the values exactly (the model's
+    bf16 weights; load_torch_file widens them to f32) and f32 elsewhere."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.models import conversion
+    from regen3d_tpu_torch.models.from_jax import tree_from_model
+    from regen3d_tpu_torch.models.weights import load_torch_file
+    from regen3d_tpu_torch.pipeline import phase4_camera
+    from regen3d_tpu_torch.utils.image import save_image
+
+    bad, rows = [], {}
+    for name in UPSTREAM_FAMILIES:
+        fam = conversion.FAMILIES[name]
+        src, build, args, fwd = _upstream_family(name, dev)
+        n_par = sum(p.numel() for p in src.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = conversion.upstream_state(
+            name, tree_from_model(src, fam.conv_transpose))
+        t_out = time.perf_counter() - t0
+        if name == "vggt":
+            d = root / "vggt_pt"
+            d.mkdir(parents=True)
+            path = d / "model.pt"
+            # bf16 where that is exact (the bf16 weights), f32 elsewhere
+            pt = {}
+            for k, v in state.items():
+                t = torch.from_numpy(v)
+                b = t.to(torch.bfloat16)
+                pt[k] = b if torch.equal(b.float(), t) else t
+            torch.save(pt, path)
+            n_bf16 = f"{sum(t.dtype == torch.bfloat16 for t in pt.values())}" \
+                f"/{len(pt)}"
+            del pt
+            size = path.stat().st_size
+            del state
+            t0 = time.perf_counter()
+            state = load_torch_file(str(path))
+            t_file = time.perf_counter() - t0
+            shutil.rmtree(d)
+        rules = fam.rules()     # the keys no rule matches
+        unmapped = [k for k in state
+                    if not any(re.match(r[0], k) for r in rules)]
+        fresh = build()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conversion.load_upstream(name, state, fresh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        del state
+        sa, sb = src.state_dict(), fresh.state_dict()
+        equal = sorted(sa) == sorted(sb) and all(torch.equal(sa[k], sb[k])
+                                                 for k in sa)
+        with torch.no_grad():
+            same_fwd = _outputs_equal(fwd(src, *args), fwd(fresh, *args))
+        rows[name] = dict(params_M=round(n_par / 1e6, 3),
+                          unmapped=len(unmapped), load_s=round(t_load, 3),
+                          to_upstream_s=round(t_out, 3))
+        if name == "vggt":
+            rows[name].update(pt_GB=round(size / 1e9, 3),
+                              pt_read_s=round(t_file, 3),
+                              pt_bf16_tensors=n_bf16)
+            objs = bus_objects()
+            image, empty, _ = bus_images(objs, BUS_HW, dev,
+                                         np.random.default_rng(0))
+            for which, model in (("source", src), ("loaded", fresh)):
+                r = root / "phase4" / which
+                cfg = default_config(str(r / "output"),
+                                     input_image=str(r / "input.png"))
+                save_image(str(r / "input.png"), image)
+                save_image(Artifacts(cfg).empty_room, empty)
+                phase4_camera.run(cfg, model=model, device=dev)
+            same4, differ4 = _same_files(root / "phase4" / "source",
+                                         root / "phase4" / "loaded")
+            rows[name]["phase4_bytes_equal"] = same4 and not differ4
+            if not (same4 and not differ4):
+                bad.append(f"vggt: phase 4's artifacts differ: {differ4[:5]}")
+        if not (equal and same_fwd and not unmapped):
+            bad.append(f"{name}: tensors equal {equal}, forward bit for bit "
+                       f"{same_fwd}, unmapped {unmapped[:5]}")
+        del src, fresh, sa, sb
+        torch.cuda.empty_cache()
+    log(f"upstream layouts at full width, through the port's inverse map and "
+        f"load_upstream (VGGT-1B through a .pt and load_torch_file, then "
+        f"phase4_camera.run with each): {json.dumps(rows)}")
+    if bad:
+        raise AssertionError("upstream layouts: " + "; ".join(bad))
+    results["upstream"] = rows
+
+
+def ckpt_matting(results, model, dev="cuda"):
+    """MattingModel.alpha on the bus's 960×1280 input on the card (bf16,
+    the flash kernel) against the same weights on the CPU (f32, plain
+    versions): the alphas' levels apart within MATTING_MEAN_OVER_BF16 and
+    MATTING_MAX_OVER_BF16 times the CPU's own bf16's, the flash launches
+    of one alpha
+    (4: down2_0_attn, mid_attn, up2_0_attn, up2_1_attn), and the flash
+    kernel at MATTING_FLASH_SHAPE against its plain version, timed beside
+    SDPA."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models.unet import MattingUNet
+    from regen3d_tpu_torch.pipeline.matting import MattingModel
+    from regen3d_tpu_torch.utils.image import load_image_rgb
+
+    image = load_image_rgb(str(ROOT / "build" / "bus" / "bus" / "input.png"))
+    cpu = {dt: MattingUNet(base=32, dtype=dt, device="cpu")
+           for dt in (torch.float32, torch.bfloat16)}
+    for m in cpu.values():
+        m.load_state_dict(model.state_dict())
+    card = MattingModel(model)
+    card.alpha(image)           # warm-up, uncounted
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_card = card.alpha(image)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    results["matting_launches"] = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    a_cpu = MattingModel(cpu[torch.float32]).alpha(image)
+    t_cpu = time.perf_counter() - t0
+    levels = np.abs(a_card - a_cpu) * 255
+    own = np.abs(MattingModel(cpu[torch.bfloat16]).alpha(image) - a_cpu) * 255
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    r = fwd_case(MATTING_FLASH_SHAPE, gen)
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], r["err"])
+    results["flash_fwd"]["matting_shape"] = dict(
+        shape=MATTING_FLASH_SHAPE, err=r["err"], bound_ms=r["bound"][0],
+        bound_by=r["bound"][1], launches=results["matting_launches"][
+            "flash_fwd"], **r["ms"])
+    log(f"matting (MattingUNet base 32, 256², seeded init) on the 960x1280 "
+        f"input: card {t_card:.3f} s, CPU f32 {t_cpu:.3f} s; alpha levels "
+        f"from the CPU's f32: the card max {levels.max():.2f}, mean "
+        f"{levels.mean():.4f}, the CPU's bf16 max {own.max():.2f}, mean "
+        f"{own.mean():.4f} (tol {MATTING_MAX_OVER_BF16}x, "
+        f"{MATTING_MEAN_OVER_BF16}x); alpha in "
+        f"[{a_card.min():.3f}, {a_card.max():.3f}], {float((a_card > 0.5).mean()):.3f} "
+        f"above 0.5; launches {results['matting_launches']}")
+    if not (levels.max() <= MATTING_MAX_OVER_BF16 * own.max()
+            and levels.mean() <= MATTING_MEAN_OVER_BF16 * own.mean()
+            and results["matting_launches"]["flash_fwd"] == 4):
+        raise AssertionError("matting: card vs CPU or launches over limits")
+
+
+def phase_checkpoints(results, sam):
+    """The checkpoint layer on the card (regen3d_tpu_torch/models/weights.py,
+    conversion.py and the config keys' loaders): which of tensorstore,
+    safetensors and PIL this machine has, and the refusals where one is
+    absent (ckpt_packages); the five config keys at full width from the
+    port's directories against the same models passed in
+    (ckpt_config_keys); the upstream layouts at full width
+    (ckpt_upstream); phase 2's matting net on the card against the CPU
+    (ckpt_matting)."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    have, bad = ckpt_packages(root)
+    log(f"checkpoint packages on this machine: {have}; the refusals where "
+        f"one is absent: {bad or 'as expected'}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    models = ckpt_models()
+    ckpt_config_keys(results, sam, models, root)
+    ckpt_matting(results, models["matting"])
+    del models
+    torch.cuda.empty_cache()
+    ckpt_upstream(results, root)
+    shutil.rmtree(root / "ckpt", ignore_errors=True)
+    log(f"phase_checkpoints: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5380,7 +5911,10 @@ def main() -> int:
     phase_bus(results)
     phase_assets(results)
     phase_lpips(results)
-    phase_segment(results, phase_sam(results))
+    sam = phase_sam(results)
+    phase_segment(results, sam)
+    phase_checkpoints(results, sam)
+    del sam
     phase_alternates(results)
     phase_dit(results)
     phase_sam_grad(results)

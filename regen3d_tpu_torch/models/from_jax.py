@@ -31,11 +31,14 @@ mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
   tables) keeps its name.
 
 Takes numpy arrays (``jax.device_get`` of the tree) and imports no JAX.
+:func:`tree_from_model` is the inverse: a port module's parameters as the
+flax tree (the upstream-layout round trips of ``models/conversion.py``
+start from it).
 """
 
 from __future__ import annotations
 
-from typing import Dict, FrozenSet, Mapping
+from typing import Any, Dict, FrozenSet, Mapping
 
 import numpy as np
 import torch
@@ -95,3 +98,42 @@ def load_from_jax(model: torch.nn.Module, params: Mapping,
     parameters and are cast where a parameter is stored in another
     dtype."""
     model.load_state_dict(state_from_jax(params, conv_transpose), strict=True)
+
+
+def _flax_leaf(model: torch.nn.Module, name: str, t: torch.Tensor,
+               conv_transpose: FrozenSet[str]):
+    """The inverse of ``state_from_jax``'s rule for one state-dict entry:
+    (flax path, tensor in flax layout)."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        owner = model.get_submodule(".".join(mods))
+        if isinstance(owner, torch.nn.Embedding):
+            leaf = "embedding"
+        elif t.ndim == 2:
+            leaf, t = "kernel", t.T
+        elif t.ndim == 4 and mods[-1] in conv_transpose:
+            leaf, t = "kernel", t.permute(2, 3, 0, 1).flip(0, 1)
+        elif t.ndim == 4:
+            leaf, t = "kernel", t.permute(2, 3, 1, 0)
+        elif t.ndim == 1:
+            leaf = "scale"
+        else:
+            raise ValueError(f"unexpected weight rank at {name}")
+    return tuple(mods) + (leaf,), t
+
+
+def tree_from_model(model: torch.nn.Module,
+                    conv_transpose: FrozenSet[str] = frozenset()
+                    ) -> Dict[str, Any]:
+    """``model``'s state dict as the flax tree ``{"params": ...}`` that
+    ``load_from_jax`` would load back into it exactly: numpy arrays (bf16
+    widened to f32; kernels are transposed views, and an f32 parameter on
+    the CPU shares its memory), or, for parameters on the ``meta``
+    device, meta tensors that carry only the shapes."""
+    from regen3d_tpu_torch.models.weights import to_numpy, unflatten_tree
+
+    flat = {}
+    for name, t in model.state_dict().items():
+        path, t = _flax_leaf(model, name, t, conv_transpose)
+        flat[path] = t if t.is_meta else to_numpy(t)
+    return {"params": unflatten_tree(flat)}

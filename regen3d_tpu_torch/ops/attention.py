@@ -426,3 +426,31 @@ def flash_attention_grid_bias(q, k, v, bias_h, bias_w, kw: int,
     """Fused attention with the factored key-grid bias → (B, H, Sq, D)."""
     return flash_attention_grid_bias_fwd(q, k, v, bias_h, bias_w, kw,
                                          scale)[0]
+
+
+def multihead_attention(x_q, x_kv, w_q, w_k, w_v, w_o, num_heads: int,
+                        b_q=None, b_k=None, b_v=None, b_o=None
+                        ) -> torch.Tensor:
+    """Projection + flash attention + output projection.
+
+    x_q (B, Sq, E), x_kv (B, Sk, E); weights (E, E) in flax's (in, out)
+    layout. Each projection accumulates in f32, adds its bias and rounds to
+    the input's dtype, as the JAX function's ``preferred_element_type``
+    product does."""
+    b, sq, e = x_q.shape
+    hd = e // num_heads
+
+    def proj(x, w, bias):
+        y = torch.einsum("bse,ef->bsf", x.float(), w.float())
+        if bias is not None:
+            y = y + bias.float()
+        return y.to(x.dtype)
+
+    def heads(t):
+        return t.reshape(b, -1, num_heads, hd).transpose(1, 2).contiguous()
+
+    q = heads(proj(x_q, w_q, b_q))
+    k = heads(proj(x_kv, w_k, b_k))
+    v = heads(proj(x_kv, w_v, b_v))
+    o = flash_attention(q, k, v).transpose(1, 2).reshape(b, sq, e)
+    return proj(o, w_o, b_o)

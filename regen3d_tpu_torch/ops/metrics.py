@@ -20,6 +20,34 @@ from regen3d_tpu_torch.ops import full_f32
 from regen3d_tpu_torch.ops.knn import nn_distances
 
 
+def chamfer_metrics(pred: torch.Tensor, gt: torch.Tensor,
+                    chunk: int = 2048) -> Dict[str, torch.Tensor]:
+    """Both Chamfer conventions + Hausdorff from one pair of NN passes."""
+    d_pg, _ = nn_distances(pred, gt, chunk=chunk)   # squared
+    d_gp, _ = nn_distances(gt, pred, chunk=chunk)
+    return {
+        # pytorch3d chamfer_distance: mean squared, summed both ways
+        "chamfer_p3d": d_pg.mean() + d_gp.mean(),
+        # point-cloud-utils chamfer: mean euclidean, averaged both ways
+        "chamfer_pcu": 0.5 * (torch.sqrt(d_pg).mean()
+                              + torch.sqrt(d_gp).mean()),
+        "hausdorff": torch.maximum(torch.sqrt(d_pg.max()),
+                                   torch.sqrt(d_gp.max())),
+    }
+
+
+def precision_recall_at(pred: torch.Tensor, gt: torch.Tensor,
+                        thr: float = 0.01, chunk: int = 2048
+                        ) -> Dict[str, torch.Tensor]:
+    """P/R at 1 cm (reference: run_eval.py cKDTree-based P/R@0.01)."""
+    d_pg, _ = nn_distances(pred, gt, chunk=chunk)
+    d_gp, _ = nn_distances(gt, pred, chunk=chunk)
+    return {
+        "precision_001": (torch.sqrt(d_pg) < thr).float().mean(),
+        "recall_001": (torch.sqrt(d_gp) < thr).float().mean(),
+    }
+
+
 def volume_iou_bbox(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Axis-aligned bounding-box volume IoU (reference: compute_volume_iou
     bbox mode, utils/metrics.py:131-189)."""

@@ -179,6 +179,34 @@ class _PointMeshFaceDistance(torch.autograd.Function):
                 None, None, None, None)
 
 
+def point_mesh_face_distance(
+    verts: torch.Tensor,
+    faces: torch.Tensor,
+    points: torch.Tensor,
+    points_mask: Optional[torch.Tensor] = None,
+    faces_mask: Optional[torch.Tensor] = None,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """One object's symmetric point↔mesh loss, pytorch3d's
+    ``point_mesh_face_distance`` semantics: mean over points of the min
+    face sq-distance plus mean over faces of the min point sq-distance.
+    verts (V, 3), faces (F, 3), points (P, 3) → scalar. The mins run over
+    chunks of ``chunk`` faces, then points, as the JAX package's scan does;
+    gradients to ``verts`` and ``points`` flow by autograd through the
+    chosen pairs (the batched ``point_mesh_face_distance_fast`` is the
+    fit's)."""
+    pm = None if points_mask is None else points_mask.bool()[None]
+    fm = None if faces_mask is None else faces_mask.bool()[None]
+    d_pf, _ = points_to_mesh_distance(points[None], verts[None], faces[None],
+                                      pm, fm, chunk)
+    d_fp, _ = _face_to_point_min(gather_faces(verts[None], faces[None]),
+                                 points[None], pm, fm, chunk)
+    if fm is not None:
+        d_fp = torch.where(fm, d_fp, torch.zeros_like(d_fp))
+    n_pts, n_f = _counts(points[None], faces[None], pm, fm)
+    return (d_pf.sum(1) / n_pts + d_fp.sum(1) / n_f)[0]
+
+
 def point_mesh_face_distance_fast(
     verts: torch.Tensor,
     faces: torch.Tensor,

@@ -4,14 +4,18 @@
 Same CLI surface: ``-p/--phases``, ``-ex/--exclude``, ``--config``, the same
 phase numbering and per-phase wall-clock timing; ``--device`` picks the
 card (``cuda``, the default) or ``cpu``. Every phase is ported, the MIDI
-and DPA baselines (10 and 11) too. Phase 1 runs weightless,
-as the JAX CLI's does (no model object is loaded from a checkpoint yet):
-the k-means proposer, the findings and the offline depth prior. Phase 2
-runs on the host (the offline inpainter without an API key). Phase 3 loads
-``checkpoints/shape_distilled.npz`` unless ``shape_checkpoint`` names
-another generator. Phase 4 needs a VGGT model object (under ``Use_VGGT:
-false`` a DUSt3R one), which no checkpoint reader supplies yet: called
-from the CLI it raises as the JAX package's does. Phase 8 renders in
+and DPA baselines (10 and 11) too. Phase 1 loads the detector, the
+saliency net and Depth-Anything that ``detector_checkpoint``,
+``saliency_checkpoint`` and ``depth_anything_checkpoint`` name (the JAX
+package's orbax directories or the port's, ``models/weights.py``), and
+without them runs weightless, as the JAX CLI's does: the k-means
+proposer, the findings and the offline depth prior. Phase 2 runs on the
+host (the offline inpainter without an API key) but for the matting net
+of ``matting_checkpoint``, and phase 9 loads ``lpips_checkpoint``. Phase 3
+loads ``checkpoints/shape_distilled.npz`` unless ``shape_checkpoint``
+names another generator. Phase 4 needs a VGGT model object (under
+``Use_VGGT: false`` a DUSt3R one), which no config key names: called from
+the CLI it raises as the JAX package's does. Phase 8 renders in
 software on the device unless a ``blender`` executable is on PATH. Phases
 10 and 11 run weightless, as the JAX CLI's do: the k-means proposer for
 segmentation and the random-init tiny generator.
@@ -36,7 +40,7 @@ def _phase1(cfg: Config, device) -> None:
 
 def _phase2(cfg: Config, device) -> None:
     from regen3d_tpu_torch.pipeline import phase2_inpaint
-    phase2_inpaint.run(cfg)
+    phase2_inpaint.run(cfg, device=device)
 
 
 def _phase3(cfg: Config, device) -> None:

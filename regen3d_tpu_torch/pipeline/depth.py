@@ -5,9 +5,11 @@ The reference's ``depth_from_image`` (global_utils.py:357-418) runs Marigold
 (``depth_large_model: true``) or Depth-Anything-V2-Small. The port runs
 :class:`~regen3d_tpu_torch.models.depth_anything.DepthAnything` when one is
 passed, on the device it was built on, and otherwise the offline prior the
-JAX package falls back to. Marigold waits for ROADMAP Queue 1 item 5; a
-``depth_anything_checkpoint`` that exists (an orbax directory) raises
-(item 1), a missing one falls back to the prior as in the JAX package.
+JAX package falls back to. Marigold waits for ROADMAP Queue 1 item 5. A
+``depth_anything_checkpoint`` that exists loads the model
+(``pipeline/depth_distill.load_depth_checkpoint``: the JAX package's orbax
+directory or the port's, with its ``config.json``); a missing one falls
+back to the prior as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,24 +54,20 @@ def estimate_depth(image: np.ndarray, model=None) -> np.ndarray:
     return ((d - d.min()) / max(d.max() - d.min(), 1e-9)).astype(np.float32)
 
 
-def refuse_checkpoint(cfg: Mapping, model=None) -> None:
-    """Raise when no model is passed and ``depth_anything_checkpoint``
-    names a path that exists: the port reads no orbax checkpoint yet."""
-    ckpt = str(cfg.get("depth_anything_checkpoint", "") or "")
-    if model is None and ckpt and os.path.exists(ckpt):
-        raise NotImplementedError(
-            f"depth: depth_anything_checkpoint {ckpt}: loading "
-            "Depth-Anything from a checkpoint directory is not ported "
-            "(ROADMAP Queue 1 item 1); pass a model object")
-
-
-def run(cfg: Mapping, model=None) -> Optional[str]:
+def run(cfg: Mapping, model=None, device="cuda") -> Optional[str]:
     """Write ``Artifacts.depth_scene`` (``output/findings/depth.png``) for
-    ``input_image``: ``estimate_depth`` × 255 as uint8. Returns its path."""
-    refuse_checkpoint(cfg, model)
+    ``input_image``: ``estimate_depth`` × 255 as uint8, with ``model``, or
+    else the model of ``depth_anything_checkpoint`` loaded on ``device``.
+    Returns its path."""
     art = Artifacts(cfg)
     ckpt = str(cfg.get("depth_anything_checkpoint", "") or "")
-    if model is None and ckpt:
+    if model is None and ckpt and os.path.exists(ckpt):
+        from regen3d_tpu_torch.pipeline.depth_distill import (
+            load_depth_checkpoint,
+        )
+        model = load_depth_checkpoint(ckpt, device=device)
+        log.info("depth: Depth-Anything checkpoint %s", ckpt)
+    elif model is None and ckpt:
         log.warning("depth: depth_anything_checkpoint %s missing — the "
                     "offline prior", ckpt)
     img = load_image_rgb(cfg.path("input_image"), max_side=1280)

@@ -17,11 +17,14 @@ runs scikit-learn's k-means as ``ops/kmeans.py`` copies it.
 ``export_findings`` writes the finding, banana and layout PNGs;
 ``run`` loads the input, detects, exports and writes ``depth.png``.
 
-Refused: a ``detector_checkpoint``, ``saliency_checkpoint`` or
-``depth_anything_checkpoint`` that names an existing directory (orbax
-checkpoints: ROADMAP Queue 1 item 1; a missing path falls back as in the
-JAX package), ``interactive_edit`` and ``use_banana: false`` (the editor
-UI and the upscaler: Queue 1 item 5).
+Without a model object, a ``detector_checkpoint`` or (for
+``point_method: saliency``) ``saliency_checkpoint`` that names a directory
+is loaded (``pipeline/detector_distill.py``,
+``pipeline/saliency_distill.py``: the JAX package's orbax directories or
+the port's), as is ``depth_anything_checkpoint`` (``pipeline/depth.py``);
+a missing path is logged and falls back as in the JAX package. Refused:
+``interactive_edit`` and ``use_banana: false`` (the editor UI and the
+upscaler: ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -132,18 +135,16 @@ def _sam_decode_batched(sam, emb: torch.Tensor, image_hw: Tuple[int, int],
     return list((logits > 0).cpu().numpy())
 
 
-def _checkpoint_dir(cfg: Mapping, key: str, what: str, fallback: str) -> None:
-    """Refuse a checkpoint path that exists (the port reads no orbax
-    checkpoint yet); log a missing one, as the JAX package does, and go on
+def _checkpoint_dir(cfg: Mapping, key: str, fallback: str) -> Optional[str]:
+    """The directory ``cfg[key]`` names, or None: a path that does not name
+    a directory is logged, as the JAX package does, and the caller goes on
     to ``fallback``."""
     path = str(cfg.get(key, "") or "")
     if path and os.path.isdir(path):
-        raise NotImplementedError(
-            f"phase 1: {key} {path}: loading the {what} from a checkpoint "
-            "directory is not ported (ROADMAP Queue 1 item 1); pass a model "
-            "object")
+        return path
     if path:
         log.warning("phase1: %s %s missing — %s", key, path, fallback)
+    return None
 
 
 @torch.no_grad()
@@ -154,20 +155,34 @@ def detect_and_segment(cfg: Mapping, image: np.ndarray, sam=None,
 
     cfg is the pipeline config (any mapping with ``get``): labels,
     threshold, iou_threshold, use_points, point_method, points_per_object,
-    scale_bounding_boxes, seed and the checkpoint paths are read. Without a
-    detector the weightless ``cluster_proposals`` proposes regions,
-    labelling pixels on ``device`` (default: SAM's device, else the card);
-    without ``sam`` each detection keeps its mask or gets its box filled.
-    ``saliency_model`` gives the ``saliency`` points. Returns the
-    detections whose mask is non-empty."""
-    if detector is None:
-        _checkpoint_dir(cfg, "detector_checkpoint", "detector",
-                        "clustering fallback")
-    if str(cfg.get("point_method", "")) == "saliency" and saliency_model is None:
-        _checkpoint_dir(cfg, "saliency_checkpoint", "saliency net",
-                        "max_distance fallback")
+    scale_bounding_boxes, seed and the checkpoint paths are read. A
+    ``detector_checkpoint`` or ``saliency_checkpoint`` directory loads the
+    model not passed in, on ``device`` (default: SAM's device, else the
+    card). Without a detector the weightless ``cluster_proposals``
+    proposes regions, labelling pixels on ``device``; without ``sam`` each
+    detection keeps its mask or gets its box filled. ``saliency_model``
+    gives the ``saliency`` points. Returns the detections whose mask is
+    non-empty."""
     if device is None:
         device = next(sam.parameters()).device if sam is not None else "cuda"
+    if detector is None:
+        ckpt = _checkpoint_dir(cfg, "detector_checkpoint",
+                               "clustering fallback")
+        if ckpt:
+            from regen3d_tpu_torch.pipeline.detector_distill import (
+                load_detector_checkpoint,
+            )
+            detector = load_detector_checkpoint(ckpt, device=device)
+            log.info("phase1: detector checkpoint %s", ckpt)
+    if str(cfg.get("point_method", "")) == "saliency" and saliency_model is None:
+        ckpt = _checkpoint_dir(cfg, "saliency_checkpoint",
+                               "max_distance fallback")
+        if ckpt:
+            from regen3d_tpu_torch.pipeline.saliency_distill import (
+                SaliencyModel,
+            )
+            saliency_model = SaliencyModel.load(ckpt, device=device)
+            log.info("phase1: saliency checkpoint %s", ckpt)
     labels = list(cfg.get("labels", []))
     thr = float(cfg.get("threshold", 0.25))
     iou_thr = float(cfg.get("iou_threshold", 0.5))
@@ -267,13 +282,15 @@ def run(cfg: Mapping, sam=None, detector=None, saliency_model=None,
         depth_model=None,
         detections: Optional[List[DetectionResult]] = None,
         device="cuda") -> List[str]:
-    """Phase 1 on ``input_image`` (a PNG, at most 1280 px a side): detect
-    and segment (unless ``detections`` are given), export the findings and
+    """Phase 1 on ``input_image`` (at most 1280 px a side): detect and
+    segment (unless ``detections`` are given), export the findings and
     write ``depth.png`` with ``depth_model`` (a
-    :class:`~regen3d_tpu_torch.models.depth_anything.DepthAnything`) or the
-    offline prior. Models run where they were built; the weightless
-    k-means labels pixels on ``device``. Unlike the JAX package, a failing
-    depth step is not caught (ROADMAP Queue 3 al). Returns the stems."""
+    :class:`~regen3d_tpu_torch.models.depth_anything.DepthAnything`), the
+    model of ``depth_anything_checkpoint``, or the offline prior. Models
+    passed in run where they were built; models loaded from checkpoints
+    and the weightless k-means run on ``device``. Unlike the JAX package,
+    a failing depth step is not caught (ROADMAP Queue 3 al). Returns the
+    stems."""
     if bool(cfg.get("interactive_edit", False)):
         raise NotImplementedError(
             "phase 1: interactive_edit (the browser mask editor, "
@@ -283,7 +300,6 @@ def run(cfg: Mapping, sam=None, detector=None, saliency_model=None,
             "phase 1: use_banana false upscales the crops with the diffusion "
             "upscaler (pipeline/upscale.py), which is not ported (ROADMAP "
             "Queue 1 item 5)")
-    depth_mod.refuse_checkpoint(cfg, depth_model)
     image = load_image_rgb(cfg.path("input_image"), max_side=1280)
     if detections is None:
         detections = detect_and_segment(cfg, image, sam=sam, detector=detector,
@@ -293,5 +309,5 @@ def run(cfg: Mapping, sam=None, detector=None, saliency_model=None,
         log.warning("phase1: no detections")
         return []
     stems = export_findings(cfg, image, detections)
-    depth_mod.run(cfg, model=depth_model)
+    depth_mod.run(cfg, model=depth_model, device=device)
     return stems

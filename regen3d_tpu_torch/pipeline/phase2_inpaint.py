@@ -10,9 +10,10 @@ margin → edge clean-up → 512² RGBA.
 The API boundary is an injectable :class:`ImageGenClient`; without an API
 key the :class:`OfflineInpainter` runs, which needs no network: an object's
 completion is its finding, the empty room a fill from row medians. The
-phase runs on the host in numpy; PNG IO and Pillow's BICUBIC and LANCZOS
-resizes are the port's own (utils/image.py), bit for bit, since the GPU
-machine has no PIL.
+phase runs on the host in numpy but for the matting net
+(``matting_checkpoint``: ``pipeline/matting.py``, on the device); PNG IO
+and Pillow's BILINEAR, BICUBIC and LANCZOS resizes are the port's own
+(utils/image.py), bit for bit, since the GPU machine has no PIL.
 """
 
 from __future__ import annotations
@@ -136,11 +137,13 @@ def prepare_for_3d(png_path: str, out_path: str, size: int = 512,
     write_png(out_path, resize_pil(canvas, (size, size), "lanczos"))
 
 
-def run(cfg: Config, client: Optional[ImageGenClient] = None) -> List[str]:
-    """All of phase 2 on the host; returns the finding stems inpainted.
-    A ``matting_checkpoint`` that names a directory raises: the matting
-    model loads from an orbax checkpoint, and the checkpoint reader is
-    ROADMAP Queue 1 item 1."""
+def run(cfg: Config, client: Optional[ImageGenClient] = None,
+        device="cuda") -> List[str]:
+    """All of phase 2; returns the finding stems inpainted. A
+    ``matting_checkpoint`` that names a directory loads the matting net
+    (width ``matting_base``) on ``device`` for ``prepare_for_3d``; a
+    missing path is logged and the threshold matte runs, as in the JAX
+    package."""
     art = Artifacts(cfg)
     os.makedirs(art.inpaint_dir, exist_ok=True)
     os.makedirs(art.prepped_dir, exist_ok=True)
@@ -152,12 +155,13 @@ def run(cfg: Config, client: Optional[ImageGenClient] = None) -> List[str]:
             log.warning("phase2: no API key — offline inpainter")
             client = OfflineInpainter(art.findings_fullsize)
 
+    matting = None
     ckpt = str(cfg.get("matting_checkpoint", "") or "")
     if ckpt and os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"matting_checkpoint {ckpt}: the matting model loads from a "
-            "checkpoint, and the port has no checkpoint reader yet (ROADMAP "
-            "Queue 1 item 1)")
+        from regen3d_tpu_torch.pipeline.matting import MattingModel
+        matting = MattingModel.load(
+            ckpt, base=int(cfg.get("matting_base", 32)), device=device)
+        log.info("phase2: matting checkpoint %s", ckpt)
     elif ckpt:
         log.warning("phase2: matting_checkpoint %s missing — threshold "
                     "matting fallback", ckpt)
@@ -192,7 +196,7 @@ def run(cfg: Config, client: Optional[ImageGenClient] = None) -> List[str]:
                                   temperature=temp, top_p=top_p, seed=seed)
         save_image(out_path, img)
         prepare_for_3d(out_path, os.path.join(art.prepped_dir, f"{stem}.png"),
-                       size=512)
+                       size=512, matting=matting)
         return stem
 
     stems = art.list_findings()

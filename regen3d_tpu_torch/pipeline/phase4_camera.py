@@ -402,7 +402,8 @@ def refine_cameras_with_tracks(cfg: Config, images, out, cam,
 def run(cfg: Config, model=None, device="cuda") -> None:
     """Phase-4 entry: VGGT on [input image, empty_room if present] → export.
     ``model`` is a VGGT on ``device``; without one this raises before any
-    work, as the JAX package does (no checkpoint reader is ported yet)."""
+    work, as the JAX package does (no checkpoint names VGGT's weights in
+    the config)."""
     art = Artifacts(cfg)
     inputs = [cfg.path("input_image")]
     if os.path.exists(art.empty_room):
@@ -410,8 +411,11 @@ def run(cfg: Config, model=None, device="cuda") -> None:
     if model is None:
         raise RuntimeError(
             "phase 4 requires a VGGT model + params (no pretrained weights "
-            "ship in this environment — pass a checkpoint via "
-            "models.weights.load_checkpoint, or call export_reconstruction "
-            "with precomputed geometry)")
+            "ship in this environment — load facebook/VGGT-1B's model.pt "
+            "into regen3d_tpu_torch.models.vggt.VGGT with "
+            "models.weights.load_torch_file and conversion.load_upstream, "
+            "or a converted directory with models.weights.load_model, and "
+            "pass it as phase4_camera.run(cfg, model=...); or call "
+            "export_reconstruction with precomputed geometry)")
     frames = run_vggt_inference(cfg, model, tuple(inputs), device=device)
     export_reconstruction(cfg, frames)

@@ -79,11 +79,11 @@ class PackedScene:
 def _load_scene_for_render(paths: List[str], cfg: Optional[Config] = None,
                            tile: int = 256) -> Optional[PackedScene]:
     """Every mesh of the GLBs that exist, packed into one scene (None when
-    there is none): textures decoded (PNG only) and resized to ``tile``² by
-    Pillow's BICUBIC, UVs clipped to [0, 1] (not wrapped: u or v = 1 is a
-    legitimate edge coordinate), each mesh's metallic and roughness scaled
-    by ``metallic_strength`` and ``roughness_strength``, the roughness
-    clipped to [0.03, 1]."""
+    there is none): textures decoded (PNG, or another format through PIL)
+    and resized to ``tile``² by Pillow's BICUBIC, UVs clipped to [0, 1]
+    (not wrapped: u or v = 1 is a legitimate edge coordinate), each mesh's
+    metallic and roughness scaled by ``metallic_strength`` and
+    ``roughness_strength``, the roughness clipped to [0.03, 1]."""
     meshes: List[MeshData] = []
     for p in paths:
         if os.path.exists(p):

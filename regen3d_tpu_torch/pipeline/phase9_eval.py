@@ -8,9 +8,12 @@ Hausdorff, P/R@0.01, Wasserstein) → 2D metrics
 timestamped evaluation dir with json/csv + comparison vs the previous run.
 
 The rendered image is resized to the input's size with LANCZOS as Pillow
-computes it (utils/image.resize_pil). LPIPS runs when the caller passes
-``lpips_fn``; loading a converted ``lpips_checkpoint`` needs the orbax
-reader, not ported yet (ROADMAP Queue 1 item 1), and raises.
+computes it (utils/image.resize_pil). LPIPS runs with the caller's
+``lpips_fn`` or, without one, the weights of ``lpips_checkpoint`` (a
+directory ``models/weights.py`` reads: the JAX package's converted orbax
+one or the port's) on ``device``; a missing path is logged and LPIPS is
+left out. Unlike the JAX package, a checkpoint that fails to load raises
+(ROADMAP Queue 3 aq).
 """
 
 from __future__ import annotations
@@ -39,10 +42,17 @@ def run(cfg: Config, lpips_fn=None, device="cuda") -> Dict[str, float]:
     art = Artifacts(cfg)
     metrics: Dict[str, float] = {}
 
-    if lpips_fn is None and cfg.get("lpips_checkpoint"):
-        raise NotImplementedError(
-            "phase 9: lpips_checkpoint needs the orbax weight reader "
-            "(models/weights.py), which is not ported yet; pass lpips_fn")
+    if lpips_fn is None:
+        ckpt = cfg.path("lpips_checkpoint", None)
+        if ckpt and os.path.exists(ckpt):
+            from regen3d_tpu_torch.models.lpips import LPIPS, make_lpips_fn
+            from regen3d_tpu_torch.models.weights import load_model
+
+            lpips_fn = make_lpips_fn(load_model(LPIPS(device=device), ckpt))
+            log.info("phase9: LPIPS weights from %s", ckpt)
+        elif ckpt:
+            log.warning("phase9: lpips_checkpoint %s missing — no LPIPS",
+                        ckpt)
 
     # --- 3D block --------------------------------------------------------------
     if os.path.exists(art.pred_points_ply) and os.path.exists(art.gt_points_ply):

@@ -1,14 +1,29 @@
-"""The saliency net's phase-1 wrapper (counterpart of the ``SaliencyModel``
-of regen3d_tpu/pipeline/saliency_distill.py; its trainer and checkpoint
-writer are ROADMAP Queue 1 item 8, its orbax loader item 1)."""
+"""The saliency net's phase-1 wrapper and its checkpoint (counterpart of
+``SaliencyModel`` and ``save_saliency_checkpoint`` of
+regen3d_tpu/pipeline/saliency_distill.py; the trainer is ROADMAP Queue 1
+item 8). A checkpoint is a directory of either kind ``models/weights.py``
+reads, with a ``config.json`` sidecar of the ``SaliencyConfig`` without its
+dtype."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from regen3d_tpu_torch.models.from_jax import SALIENCY_CONV_TRANSPOSE
 from regen3d_tpu_torch.models.layers import resize_bilinear
-from regen3d_tpu_torch.models.saliency import SaliencyTransformer
+from regen3d_tpu_torch.models.saliency import SaliencyConfig, SaliencyTransformer
+from regen3d_tpu_torch.models.weights import (
+    load_model,
+    read_config_json,
+    save_model,
+)
+
+
+def save_saliency_checkpoint(path: str, net: SaliencyTransformer) -> None:
+    """``net``'s weights as the port's checkpoint directory, with its
+    config as the sidecar."""
+    save_model(path, net, net.cfg, SALIENCY_CONV_TRANSPOSE)
 
 
 class SaliencyModel:
@@ -19,6 +34,17 @@ class SaliencyModel:
     def __init__(self, model: SaliencyTransformer):
         self.model = model
         self.cfg = model.cfg
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "SaliencyModel":
+        """The net of checkpoint directory ``path`` on ``device``, at the
+        sidecar's config (its default dtype) or, without one,
+        ``SaliencyConfig()``. A missing directory raises
+        ``FileNotFoundError``."""
+        d = read_config_json(path)
+        cfg = SaliencyConfig(**d) if d is not None else SaliencyConfig()
+        return cls(load_model(SaliencyTransformer(cfg, device=device), path,
+                              SALIENCY_CONV_TRANSPOSE))
 
     @torch.no_grad()
     def saliency(self, image: np.ndarray) -> np.ndarray:

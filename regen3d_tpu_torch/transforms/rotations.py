@@ -35,12 +35,26 @@ def so3_exp(log_rot: torch.Tensor) -> torch.Tensor:
             + one_minus_cos_over[..., None, None] * KK)
 
 
+def rotation_about_axis(angle: torch.Tensor, axis: str) -> torch.Tensor:
+    """Elementary rotation matrix about 'x' | 'y' | 'z'. angle: scalar or
+    (...)."""
+    angle = torch.as_tensor(angle)
+    c, s = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    if axis == "x":
+        rows = [[one, zero, zero], [zero, c, -s], [zero, s, c]]
+    elif axis == "y":
+        rows = [[c, zero, s], [zero, one, zero], [-s, zero, c]]
+    elif axis == "z":
+        rows = [[c, -s, zero], [s, c, zero], [zero, zero, one]]
+    else:
+        raise ValueError(f"axis must be x|y|z, got {axis}")
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def yaw_rotation(yaw: torch.Tensor) -> torch.Tensor:
     """Rotation about +Y: [[c, 0, s], [0, 1, 0], [-s, 0, c]]."""
-    c, s = torch.cos(yaw), torch.sin(yaw)
-    one, zero = torch.ones_like(c), torch.zeros_like(c)
-    rows = [[c, zero, s], [zero, one, zero], [-s, zero, c]]
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    return rotation_about_axis(yaw, "y")
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -111,3 +125,14 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.take_along_dim(qs, best[..., None, None], dim=-2)[..., 0, :]
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def random_rotation(generator: torch.Generator, shape=(),
+                    dtype=torch.float32) -> torch.Tensor:
+    """Uniform random rotation matrices (``shape`` + (3, 3)) via normalized
+    Gaussian quaternions, drawn from ``generator`` on its device (the JAX
+    function takes a PRNG key; the draws differ, the distribution is the
+    same)."""
+    q = torch.randn(tuple(shape) + (4,), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return quat_to_matrix(q)

@@ -1,6 +1,6 @@
 """Host-side image utilities of the port: PNG IO, ``load_image_rgb``, mask
-ops, phase 1's finding images and layouts, nearest, BICUBIC and LANCZOS
-resizes, GIF, the Radiance HDR codec (counterpart of
+ops, phase 1's finding images and layouts, nearest, BILINEAR, BICUBIC and
+LANCZOS resizes, GIF, the Radiance HDR codec (counterpart of
 regen3d_tpu/utils/image.py), and phase 3's RGBA load.
 
 The GPU machine this port runs on has neither PIL nor OpenCV, so PNG files
@@ -17,10 +17,13 @@ fixed point for RGB → L), and :func:`resize_nearest` reproduces PIL's
 package's. :func:`load_image_rgb` composites alpha over white
 (:func:`alpha_over_white`) and resizes with LANCZOS (:func:`resize_pil`)
 in Pillow's fixed-point arithmetic, bit for bit; :func:`resize_pil` does
-the same for BICUBIC and for RGBA and LA images, which Pillow resizes
-premultiplied by alpha. Erosion and dilation are
+the same for BILINEAR and BICUBIC and for RGBA and LA images, which Pillow
+resizes premultiplied by alpha. Erosion and dilation are
 the JAX module's numpy branches, which it takes where OpenCV is absent.
-:func:`save_gif` needs PIL and imports it inside itself.
+Files and bytes of other formats (a JPEG photo) go through PIL where it is
+installed: :func:`load_image_rgb`, :func:`decode_png` and :func:`save_gif`
+import it inside themselves and raise ``ImportError`` naming it where it
+is absent.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import zlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # PNG colour type → channels, for the 8-bit layouts the codec reads
@@ -129,13 +133,31 @@ def image_format(data: bytes) -> str:
 
 def decode_png(data: bytes, what: str = "image") -> Tuple[np.ndarray, str]:
     """PNG bytes → (uint8 (H, W, C), mode), as :func:`read_png`; bytes of
-    another format raise ``NotImplementedError`` naming it (no PIL on the
-    GPU machine to decode them)."""
+    another format go through PIL (imported here), converted to RGBA where
+    the image has transparency or a palette and to RGB otherwise, or raise
+    ``ImportError`` naming PIL and the format where it is absent."""
     if data[:8] != _PNG_SIG:
-        raise NotImplementedError(
-            f"{what}: {image_format(data)} data; only PNG is decoded (no PIL "
-            "to decode other formats)")
+        return _pil_decode(data, what)
     return _decode_png(data, what)
+
+
+def _pil_image(src, what: str, fmt: str):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{what}: {fmt} data; decoding formats other than "
+                          "PNG needs PIL (Pillow)") from e
+    return Image, Image.open(src)
+
+
+def _pil_decode(data: bytes, what: str) -> Tuple[np.ndarray, str]:
+    import io
+
+    _, img = _pil_image(io.BytesIO(data), what, image_format(data))
+    if img.mode not in ("L", "LA", "RGB", "RGBA"):
+        img = img.convert("RGBA" if img.mode in ("P", "PA", "La", "RGBa")
+                          or "transparency" in img.info else "RGB")
+    return np.asarray(img).reshape(img.height, img.width, -1), img.mode
 
 
 def _decode_png(buf: bytes, path: str) -> Tuple[np.ndarray, str]:
@@ -219,8 +241,15 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
+def _bilinear(x: float) -> float:
+    """Pillow's triangle filter on (−1, 1)."""
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
 # Pillow's filters by name: (kernel, support)
-_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0),
+            "bilinear": (_bilinear, 1.0)}
 
 
 def _resample_coeffs(n_in: int, n_out: int, filt: str = "lanczos"
@@ -256,16 +285,24 @@ def _resample_coeffs(n_in: int, n_out: int, filt: str = "lanczos"
 def _resample_axis(img: np.ndarray, n_out: int, axis: int,
                    filt: str = "lanczos") -> np.ndarray:
     """One of Pillow's 8-bit passes along ``axis`` of (H, W, C) uint8:
-    Σ pixel·weight from half a unit, then >> 22 clipped to [0, 255]."""
+    Σ pixel·weight from half a unit, then >> 22 clipped to [0, 255]. The
+    sums are exact integers, so any order gives Pillow's bytes: they run
+    in torch's threads on the host, in int32 where no sum can pass 2³¹
+    (every filter here at 8 bits) and int64 otherwise."""
     n_in = img.shape[axis]
     first, kk = _resample_coeffs(n_in, n_out, filt)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)
-    acc = np.full((n_out,) + src.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int64)
+    worst = 255 * int(np.abs(kk).sum(1).max()) + (1 << (_RESAMPLE_BITS - 1))
+    dtype = torch.int32 if worst < 2 ** 31 else torch.int64
+    src = torch.from_numpy(np.ascontiguousarray(np.moveaxis(img, axis, 0))
+                           ).to(dtype)
+    acc = torch.full((n_out,) + tuple(src.shape[1:]),
+                     1 << (_RESAMPLE_BITS - 1), dtype=dtype)
+    w = torch.from_numpy(kk).to(dtype)
     bshape = (n_out,) + (1,) * (src.ndim - 1)
     for x in range(kk.shape[1]):
-        idx = np.minimum(first + x, n_in - 1)
-        acc += src[idx] * kk[:, x].reshape(bshape)
-    out = np.clip(acc >> _RESAMPLE_BITS, 0, 255).astype(np.uint8)
+        idx = torch.from_numpy(np.minimum(first + x, n_in - 1))
+        acc += src.index_select(0, idx) * w[:, x].reshape(bshape)
+    out = (acc >> _RESAMPLE_BITS).clamp_(0, 255).to(torch.uint8).numpy()
     return np.moveaxis(out, 0, axis)
 
 
@@ -292,7 +329,7 @@ def resize_pil(arr: np.ndarray, hw: Tuple[int, int],
                filt: str = "lanczos") -> np.ndarray:
     """``Image.fromarray(arr).resize((w, h), filter)`` of a uint8 L (H, W),
     RGB or RGBA array (or LA with ``arr`` (H, W, 2)) with ``filt``
-    "lanczos" or "bicubic", bit for bit: the horizontal pass first, then
+    "lanczos", "bicubic" or "bilinear", bit for bit: the horizontal pass first, then
     the vertical, each only where that axis changes size; RGBA and LA are
     premultiplied by alpha before and divided after, as Pillow converts
     them to RGBa and La. The same size returns a copy, as Pillow does."""
@@ -332,16 +369,17 @@ def alpha_over_white(rgba: np.ndarray) -> np.ndarray:
 
 
 def load_image_rgb(path: str, max_side: Optional[int] = 1280) -> np.ndarray:
-    """A PNG → RGB uint8, as the JAX package's ``load_image_rgb`` gives it:
-    alpha composited over white, then resized with LANCZOS so the longest
-    side is at most ``max_side``. Other formats raise: the GPU machine has
-    no PIL to decode them."""
+    """An image file → RGB uint8, as the JAX package's ``load_image_rgb``
+    gives it: alpha composited over white, then resized with LANCZOS so the
+    longest side is at most ``max_side``. PNG goes through the port's own
+    decoder, compositor and resampler (Pillow's arithmetic, bit for bit);
+    any other format through PIL as the JAX package calls it, imported
+    here: where PIL is absent it raises ``ImportError`` naming the
+    format."""
     with open(path, "rb") as f:
         sig = f.read(16)
     if sig[:8] != _PNG_SIG:
-        raise NotImplementedError(
-            f"{path}: load_image_rgb reads PNG only, not {image_format(sig)} "
-            "(no PIL to decode other formats)")
+        return _pil_load_rgb(path, image_format(sig), max_side)
     img, mode = read_png(path)
     if mode in ("RGBA", "LA"):
         rgba = (img if mode == "RGBA" else
@@ -355,6 +393,22 @@ def load_image_rgb(path: str, max_side: Optional[int] = 1280) -> np.ndarray:
         scale = max_side / max(w, h)
         rgb = resize_pil(rgb, (round(h * scale), round(w * scale)), "lanczos")
     return np.ascontiguousarray(rgb)
+
+
+def _pil_load_rgb(path: str, fmt: str, max_side: Optional[int]) -> np.ndarray:
+    """The JAX package's ``load_image_rgb`` (regen3d_tpu/utils/image.py),
+    step for step on PIL."""
+    Image, img = _pil_image(path, path, fmt)
+    if img.mode in ("RGBA", "LA", "P"):
+        img = img.convert("RGBA")
+        bg = Image.new("RGBA", img.size, (255, 255, 255, 255))
+        img = Image.alpha_composite(bg, img)
+    img = img.convert("RGB")
+    if max_side and max(img.size) > max_side:
+        scale = max_side / max(img.size)
+        img = img.resize((round(img.width * scale),
+                          round(img.height * scale)), Image.LANCZOS)
+    return np.ascontiguousarray(np.asarray(img))
 
 
 def load_image_rgba(path: str) -> np.ndarray:

@@ -511,3 +511,33 @@ def test_grid_bias_forward_terms_without_a_bias_are_the_flash_terms():
     torch.testing.assert_close(
         grid_bias_abs_terms_reference(q, k, v, *zeros, 24),
         attention_abs_terms_reference(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_multihead_attention_matches_jax(dtype):
+    """Projections with biases, cross attention (Sq ≠ Sk), the output
+    projection: f32 within 1e-5, bf16 within bf16's rounding of the
+    output (each projection rounds to bf16 in both packages)."""
+    from regen3d_tpu.ops.attention import multihead_attention as jmha
+    from regen3d_tpu_torch.ops.attention import multihead_attention as tmha
+
+    rng = np.random.default_rng(30)
+    e, h = 64, 4
+    xq = rng.normal(size=(2, 10, e)).astype(np.float32)
+    xkv = rng.normal(size=(2, 33, e)).astype(np.float32)
+    ws = [(rng.normal(size=(e, e)) * 0.1).astype(np.float32)
+          for _ in range(4)]
+    bs = [(rng.normal(size=e) * 0.1).astype(np.float32) for _ in range(4)]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = np.asarray(jmha(jnp.asarray(xq, jdt), jnp.asarray(xkv, jdt),
+                           *[jnp.asarray(w) for w in ws], num_heads=h,
+                           b_q=bs[0], b_k=bs[1], b_v=bs[2], b_o=bs[3]),
+                      np.float32)
+    got = tmha(torch.from_numpy(xq).to(tdt), torch.from_numpy(xkv).to(tdt),
+               *map(torch.from_numpy, ws), num_heads=h,
+               **{f"b_{n}": torch.from_numpy(b) for n, b in zip("qkvo", bs)})
+    assert got.shape == (2, 10, e) and got.dtype == tdt
+    tol = 1e-5 if dtype == np.float32 else 2 ** -6
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=tol * np.abs(want).max())

@@ -41,6 +41,43 @@ def test_rotations_and_their_gradients(name):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_want), **TOL)
 
 
+@pytest.mark.parametrize("axis", ["x", "y", "z"])
+def test_rotation_about_axis_matches_jax(axis):
+    a = np.random.default_rng(1).normal(size=(4, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        trot.rotation_about_axis(torch.from_numpy(a), axis).numpy(),
+        np.asarray(jrot.rotation_about_axis(jnp.asarray(a), axis)), **TOL)
+    np.testing.assert_allclose(
+        trot.rotation_about_axis(np.pi / 2, axis).numpy(),
+        np.asarray(jrot.rotation_about_axis(jnp.asarray(np.pi / 2), axis)),
+        **TOL)
+    with pytest.raises(ValueError, match="x|y|z"):
+        trot.rotation_about_axis(torch.zeros(()), "w")
+
+
+def test_random_rotation_is_uniform_and_orthogonal():
+    """The port draws from a torch.Generator, not JAX's key: held on what
+    the draws must be. Each matrix orthogonal with det 1; over 20,000
+    draws each entry's mean is 0 and its mean square 1/3 (Haar measure on
+    SO(3)), within 5 standard errors; the same seed gives the same
+    draws."""
+    g = torch.Generator().manual_seed(0)
+    r = trot.random_rotation(g, (20000,))
+    assert r.shape == (20000, 3, 3) and r.dtype == torch.float32
+    eye = torch.eye(3).expand(20000, 3, 3)
+    assert (r @ r.transpose(1, 2) - eye).abs().max() < 1e-5
+    assert (torch.linalg.det(r) - 1).abs().max() < 1e-5
+    se = (1 / 3) ** 0.5 / 20000 ** 0.5
+    assert r.mean(0).abs().max() < 5 * se
+    assert (r.square().mean(0) - 1 / 3).abs().max() < 5 * 0.3 / 20000 ** 0.5
+    again = trot.random_rotation(torch.Generator().manual_seed(0), (20000,))
+    assert torch.equal(r, again)
+    assert trot.random_rotation(g).shape == (3, 3)
+    # JAX's draws obey the same
+    rj = np.asarray(jrot.random_rotation(jax.random.PRNGKey(0), (20000,)))
+    assert np.abs(rj.mean(0)).max() < 5 * se
+
+
 def test_camera_projection_and_rescale():
     rng = np.random.default_rng(1)
     R = np.array(jrot.so3_exp(jnp.asarray([0.1, -0.3, 0.2])))

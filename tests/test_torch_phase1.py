@@ -13,6 +13,7 @@ from a seed, weights carried by ``from_jax``):
 """
 
 import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -116,17 +117,65 @@ def test_detect_and_segment_matches_jax(scene, use_points, tmp_path):
         np.testing.assert_array_equal(g.mask[s], w.mask[s])
 
 
-def test_refuses_what_is_not_ported(tmp_path):
-    """A detector or saliency checkpoint directory (orbax) is refused
-    before any work; missing paths and ``point_method: saliency`` without
-    a model fall back as in the JAX package (test_torch_phase1_run.py)."""
-    image = np.zeros((8, 8, 3), np.uint8)
-    for overrides in ({"detector_checkpoint": str(tmp_path)},
-                      {"point_method": "saliency",
-                       "saliency_checkpoint": str(tmp_path)}):
-        cfg = default_config(str(tmp_path), **overrides)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            tp.detect_and_segment(cfg, image, device="cpu")
+def test_refuses_what_is_not_ported(scene, tmp_path, monkeypatch):
+    """``detector_checkpoint`` and, for ``point_method: saliency``,
+    ``saliency_checkpoint`` naming the port's directories load the models
+    not passed in (on ``device``): the detections and both passes' masks
+    are those of the same models passed directly. An orbax directory with
+    tensorstore hidden is refused before any work, naming it; missing
+    paths fall back as in the JAX package (test_torch_phase1_run.py)."""
+    from regen3d_tpu_torch.models import detector as tdet
+    from regen3d_tpu_torch.models import saliency as tsal
+    from regen3d_tpu_torch.pipeline.detector_distill import (
+        load_detector_checkpoint,
+        save_detector_checkpoint,
+    )
+    from regen3d_tpu_torch.pipeline.saliency_distill import (
+        SaliencyModel,
+        save_saliency_checkpoint,
+    )
+
+    _jsam, _params, model, _counts, image = scene
+    gen = torch.Generator().manual_seed(3)
+    det = tdet.OpenVocabDetector(tdet.DetectorConfig.tiny(), device="cpu")
+    tdet.init_flax_style_(det, gen)
+    with torch.no_grad():       # an objectness bias that passes boxes
+        det.obj_head.bias.fill_(4.0)
+    save_detector_checkpoint(str(tmp_path / "det"), det)
+    net = tsal.SaliencyTransformer(tsal.SaliencyConfig.tiny(), device="cpu")
+    tsal.init_flax_style_(net, gen)
+    save_saliency_checkpoint(str(tmp_path / "sal"), net)
+    base = dict(labels=["object", "thing"], use_points=True,
+                point_method="saliency", points_per_object=2)
+    cfg = default_config(str(tmp_path), detector_checkpoint=str(
+        tmp_path / "det"), saliency_checkpoint=str(tmp_path / "sal"),
+        **base)
+    got = tp.detect_and_segment(cfg, image, sam=model, device="cpu")
+    want = tp.detect_and_segment(
+        default_config(str(tmp_path), **base), image, sam=model,
+        detector=load_detector_checkpoint(str(tmp_path / "det"), "cpu"),
+        saliency_model=SaliencyModel.load(str(tmp_path / "sal"), "cpu"),
+        device="cpu")
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g.label, g.score) == (w.label, w.score)
+        np.testing.assert_array_equal(g.mask, w.mask)
+
+    from regen3d_tpu.models import detector as jdet
+    from regen3d_tpu.pipeline.detector_distill import (
+        save_detector_checkpoint as jsave,
+    )
+    dc = jdet.DetectorConfig.tiny()
+    shapes = jax.eval_shape(jdet.OpenVocabDetector(dc).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                            jnp.zeros((2, dc.text_len), jnp.int32))
+    jsave(str(tmp_path / "orbax"), jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes), dc)
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ImportError, match="tensorstore"):
+        tp.detect_and_segment(default_config(
+            str(tmp_path), detector_checkpoint=str(tmp_path / "orbax")),
+            image, device="cpu")
 
 
 def test_without_sam_boxes_become_masks(tmp_path):

@@ -478,23 +478,129 @@ def test_run_with_models_matches_jax(models, tmp_path, monkeypatch):
             assert (a != b).any(-1).mean() <= 5e-3, rel
 
 
+def _jax_orbax_dirs(models, root):
+    """The ``models`` fixture's drawn detector, saliency net and
+    Depth-Anything written by the JAX package's writers (orbax, with their
+    config sidecars): key → directory."""
+    from regen3d_tpu.pipeline import detector_distill as jdetd
+
+    _jdm, p_det, _ = models["det"]
+    jsm, _ = models["sal"]
+    _jam, p_da, _ = models["da"]
+    dirs = {k: str(root / k) for k in ("detector_checkpoint",
+                                       "saliency_checkpoint",
+                                       "depth_anything_checkpoint")}
+    jdetd.save_detector_checkpoint(dirs["detector_checkpoint"], p_det,
+                                   jdet.DetectorConfig.tiny())
+    jsd.save_saliency_checkpoint(dirs["saliency_checkpoint"], jsm.params,
+                                 jsal.SaliencyConfig.tiny())
+    jdepth_distill.save_depth_checkpoint(dirs["depth_anything_checkpoint"],
+                                         p_da, jda.DepthAnythingConfig.tiny())
+    return dirs
+
+
+def test_cli_loads_the_checkpoint_keys(models, tmp_path):
+    """``-p 1`` through the JAX CLI and ``python -m regen3d_tpu_torch
+    --device cpu`` with ``detector_checkpoint``, ``saliency_checkpoint``
+    (``point_method: saliency``) and ``depth_anything_checkpoint`` naming
+    the orbax directories the JAX package wrote: the detector (f32 from its
+    sidecar in both) finds the same boxes, so every finding's PNGs are the
+    same pixel for pixel; depth.png, from the two packages' bf16
+    Depth-Anything, within a mean of 0.7% of the range and 10 levels
+    (ROADMAP Queue 3 af). The port's own directories of the same models
+    give the port's files bit for bit."""
+    dirs = _jax_orbax_dirs(models, tmp_path)
+    over = dict(dirs, labels=LABELS, threshold=0.25, use_points=True,
+                point_method="saliency")
+    cfgs = {}
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+        Image.fromarray(_scene()).save(tmp_path / name / "input.png")
+        cfgs[name] = _write_cfg(tmp_path / name, **over)
+    mp = _no_cv2()
+    try:
+        jorch.main(["-p", "1", "--config", cfgs["jax"]])
+    finally:
+        mp.undo()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", "regen3d_tpu_torch", "-p", "1", "--config",
+         cfgs["port"], "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "detector checkpoint" in out.stderr and \
+        "Depth-Anything checkpoint" in out.stderr
+    jf, tf = _pngs(tmp_path / "jax"), _pngs(tmp_path / "port")
+    assert sorted(jf) == sorted(tf) and len(tf) >= 6
+    for rel in tf:
+        a = _read(tf[rel]).astype(int)
+        b = np.asarray(Image.open(jf[rel])).astype(int)
+        assert a.shape == b.shape, rel
+        if rel.name == "depth.png":
+            diff = np.abs(a - b)
+            assert diff.mean() <= 0.007 * 255 and diff.max() <= 10, rel
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=str(rel))
+
+    # the port's own directories of the same models
+    from regen3d_tpu_torch.pipeline import depth_distill as tdd
+    from regen3d_tpu_torch.pipeline import detector_distill as tdetd
+    own = {"detector_checkpoint": str(tmp_path / "own_det"),
+           "saliency_checkpoint": str(tmp_path / "own_sal"),
+           "depth_anything_checkpoint": str(tmp_path / "own_da")}
+    tdetd.save_detector_checkpoint(own["detector_checkpoint"],
+                                   tdetd.load_detector_checkpoint(
+                                       dirs["detector_checkpoint"], "cpu"))
+    from regen3d_tpu_torch.pipeline.saliency_distill import (
+        save_saliency_checkpoint,
+    )
+    save_saliency_checkpoint(own["saliency_checkpoint"], SaliencyModel.load(
+        dirs["saliency_checkpoint"], "cpu").model)
+    tdd.save_depth_checkpoint(own["depth_anything_checkpoint"],
+                              tdd.load_depth_checkpoint(
+                                  dirs["depth_anything_checkpoint"], "cpu"))
+    (tmp_path / "own").mkdir()
+    Image.fromarray(_scene()).save(tmp_path / "own" / "input.png")
+    stems = tp.run(default_config(str(tmp_path / "own" / "output"),
+                                  input_image=str(tmp_path / "own"
+                                                  / "input.png"),
+                                  **dict(over, **own)), device="cpu")
+    of = _pngs(tmp_path / "own")
+    assert sorted(of) == sorted(tf) and len(tf) == 5 * len(stems) + 1
+    for rel in of:
+        np.testing.assert_array_equal(_read(of[rel]), _read(tf[rel]))
+
+
 # --- refusals and fallbacks ---------------------------------------------------
 
-@pytest.mark.parametrize("over,match", [
-    ({"interactive_edit": True}, "Queue 1 item 5"),
-    ({"use_banana": False}, "Queue 1 item 5"),
-    ({"depth_anything_checkpoint": "{dir}"}, "Queue 1 item 1"),
-    ({"detector_checkpoint": "{dir}"}, "Queue 1 item 1")],
+@pytest.mark.parametrize("over,exc,match", [
+    ({"interactive_edit": True}, NotImplementedError, "Queue 1 item 5"),
+    ({"use_banana": False}, NotImplementedError, "Queue 1 item 5"),
+    ({"depth_anything_checkpoint": "depth_anything_checkpoint"},
+     ImportError, "tensorstore"),
+    ({"detector_checkpoint": "detector_checkpoint"}, ImportError,
+     "tensorstore")],
     ids=["editor", "upscaler", "depth_checkpoint", "detector_checkpoint"])
-def test_run_refuses_what_is_not_ported(tmp_path, over, match):
+def test_run_refuses_what_is_not_ported(models, tmp_path, monkeypatch, over,
+                                        exc, match):
+    """Item 5's switches are refused before any work; an orbax checkpoint
+    directory (written by the JAX package) where tensorstore is absent is
+    refused naming it: the detector's before any work, Depth-Anything's
+    where the JAX package loads it, after the findings."""
     Image.fromarray(_skill_room()).save(tmp_path / "input.png")
-    over = {k: (str(tmp_path) if v == "{dir}" else v) for k, v in over.items()}
+    if exc is ImportError:
+        dirs = _jax_orbax_dirs(models, tmp_path / "ckpt")
+        over = {k: dirs[v] for k, v in over.items()}
+        monkeypatch.setitem(sys.modules, "tensorstore", None)
     cfg = default_config(str(tmp_path / "output"),
                          input_image=str(tmp_path / "input.png"), **over)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         tp.run(cfg, device="cpu")
-    # refused before any work: nothing on the output bus
-    assert not (tmp_path / "output" / "findings").exists()
+    findings = (tmp_path / "output" / "findings" / "fullSize")
+    if "depth_anything_checkpoint" in over:
+        assert len(list(findings.glob("*.png"))) >= 4
+    else:   # refused before any work: nothing on the output bus
+        assert not (tmp_path / "output" / "findings").exists()
 
 
 def test_missing_checkpoints_fall_back(tmp_path):

@@ -221,8 +221,10 @@ def _write_cfg(root, **over):
 @pytest.mark.parametrize("use_vggt", [True, False])
 def test_phase4_cli_fails_like_jax(tmp_path, use_vggt):
     """Without a model, -p 4 raises in both CLIs before writing anything,
-    the same RuntimeError: with Use_VGGT the VGGT phase's, without it the
-    DUSt3R phase's (phase4_dust3r)."""
+    the same RuntimeError: with Use_VGGT the VGGT phase's, whose advice
+    names the port's own loaders (models.weights, conversion.load_upstream)
+    where the JAX package names its orbax reader, without it the DUSt3R
+    phase's (phase4_dust3r), word for word."""
     j_cfg = _write_cfg(tmp_path / "j", Use_VGGT=use_vggt)
     t_cfg = _write_cfg(tmp_path / "t", Use_VGGT=use_vggt)
     with pytest.raises(RuntimeError, match="requires a") as j_err:
@@ -231,7 +233,15 @@ def test_phase4_cli_fails_like_jax(tmp_path, use_vggt):
         "dust3r phase 4 requires a model"
     with pytest.raises(RuntimeError, match=want) as t_err:
         torch_orch.main(["-p", "4", "--config", t_cfg, "--device", "cpu"])
-    assert str(t_err.value) == str(j_err.value)
+    if use_vggt:
+        head = "phase 4 requires a VGGT model + params (no pretrained weights"
+        assert str(t_err.value).startswith(head)
+        assert str(j_err.value).startswith(head)
+        for name in ("models.weights.load_torch_file",
+                     "conversion.load_upstream", "phase4_camera.run("):
+            assert name in str(t_err.value)
+    else:
+        assert str(t_err.value) == str(j_err.value)
     for root in (tmp_path / "j", tmp_path / "t"):
         assert not (root / "output" / "pre_3D").exists()
 

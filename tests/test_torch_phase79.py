@@ -287,9 +287,23 @@ def test_phase9_metrics_match_jax(runs):
         assert yaml.safe_load(f)["num_samples"] == 2048
 
 
-def test_phase9_lpips_fn_and_checkpoint(runs, tmp_path):
-    """An ``lpips_fn`` adds the lpips key; a configured checkpoint needs
-    the orbax reader and is refused."""
+def test_phase9_lpips_fn_and_checkpoint(runs, tmp_path, caplog,
+                                        monkeypatch):
+    """An ``lpips_fn`` adds the lpips key. ``lpips_checkpoint`` naming the
+    orbax directory the JAX package's ``save_checkpoint`` wrote (drawn
+    AlexNet and heads) gives the value the JAX package's LPIPS gives on the
+    same two images, within 1e-5 (both f32), and the port's own directory
+    of the same weights the same value bit for bit; a missing path is
+    logged and leaves the key out, as in the JAX package; with tensorstore
+    hidden the orbax directory is refused, naming it."""
+    import jax
+    import jax.numpy as jnp
+
+    from regen3d_tpu.models.lpips import LPIPS as JLPIPS, make_lpips_fn
+    from regen3d_tpu.models.weights import save_checkpoint as jsave
+    from regen3d_tpu_torch.models.lpips import LPIPS
+    from regen3d_tpu_torch.models.weights import load_model, save_model
+
     _jr, tr, _stats, _m = runs
     work = tmp_path / "port"
     shutil.copytree(tr, work)
@@ -298,9 +312,32 @@ def test_phase9_lpips_fn_and_checkpoint(runs, tmp_path):
     m = tphase9.run(cfg, lpips_fn=lambda a, b: torch.tensor(0.25),
                     device="cpu")
     assert m["lpips"] == 0.25 and "scene_fscore_incl_bg" not in m
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tphase9.run(cfg.with_overrides(lpips_checkpoint="lpips_ckpt"),
-                    device="cpu")
+
+    rng = np.random.default_rng(21)
+    params = jax.tree_util.tree_map_with_path(
+        lambda k, s: np.abs(rng.normal(size=s.shape)).astype(np.float32)
+        * (0.1 if str(k[1].key).startswith("lin") else 0.05),
+        jax.eval_shape(JLPIPS().init, jax.random.PRNGKey(0),
+                       jnp.zeros((1, 32, 32, 3)), jnp.zeros((1, 32, 32, 3))))
+    ckpt = str(tmp_path / "lpips_orbax")
+    jsave(ckpt, params)
+    m = tphase9.run(cfg.with_overrides(lpips_checkpoint=ckpt), device="cpu")
+    p, r = (load_image_rgb(str(path), None)
+            for path in (_art(work).predicted_image, work / "input.png"))
+    p = resize_pil(p, r.shape[:2], "lanczos")
+    want = float(make_lpips_fn(params)(jnp.asarray(p / 255.0, jnp.float32),
+                                       jnp.asarray(r / 255.0, jnp.float32)))
+    assert want > 0 and m["lpips"] == pytest.approx(want, rel=1e-5)
+    own = str(tmp_path / "lpips_own")
+    save_model(own, load_model(LPIPS(device="cpu"), ckpt))
+    m2 = tphase9.run(cfg.with_overrides(lpips_checkpoint=own), device="cpu")
+    assert m2["lpips"] == m["lpips"]
+    m3 = tphase9.run(cfg.with_overrides(lpips_checkpoint="lpips_ckpt"),
+                     device="cpu")
+    assert "lpips" not in m3 and "lpips_checkpoint" in caplog.text
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    with pytest.raises(ImportError, match="tensorstore"):
+        tphase9.run(cfg.with_overrides(lpips_checkpoint=ckpt), device="cpu")
 
 
 def test_cli_runs_phases_5_6_7_9(tmp_path):

@@ -57,6 +57,35 @@ def test_point_mesh_face_distance_fast(masked):
                                    rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_point_mesh_face_distance_matches_jax(masked):
+    """The JAX package's scan version (one object): the value within 1e-5,
+    the gradients to the vertices and points within 1e-4, over several
+    chunks with a ragged last one."""
+    verts, faces, pts, pmask, fmask = _case(3)
+    vt = torch.from_numpy(verts[0]).requires_grad_()
+    pt = torch.from_numpy(pts[0]).requires_grad_()
+    pm = pmask[0] if masked else None
+    fm = fmask[0] if masked else None
+    loss_t = tpm.point_mesh_face_distance(
+        vt, torch.from_numpy(faces[0]), pt,
+        None if pm is None else torch.from_numpy(pm),
+        None if fm is None else torch.from_numpy(fm), 16)
+    loss_t.backward()
+    val, (gv, gp) = jax.value_and_grad(
+        lambda v, p: jpm.point_mesh_face_distance(
+            v, jnp.asarray(faces[0]), p,
+            None if pm is None else jnp.asarray(pm),
+            None if fm is None else jnp.asarray(fm), 16),
+        argnums=(0, 1))(jnp.asarray(verts[0]), jnp.asarray(pts[0]))
+    assert loss_t.shape == ()
+    np.testing.assert_allclose(loss_t.item(), float(val), rtol=1e-5)
+    np.testing.assert_allclose(vt.grad.numpy(), np.asarray(gv), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(pt.grad.numpy(), np.asarray(gp), rtol=1e-4,
+                               atol=1e-6)
+
+
 def test_points_to_mesh_argmin_matches():
     verts, faces, pts, _, fmask = _case(2)
     d_t, i_t = tpm.points_to_mesh_distance(
