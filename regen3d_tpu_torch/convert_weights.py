@@ -63,6 +63,15 @@ def full_model(family: str):
             DepthAnythingConfig,
         )
         return DepthAnything(DepthAnythingConfig.small(), device=dev)
+    if family == "sd_unet":
+        from regen3d_tpu_torch.models.sd_unet import SDUNet, SDUNetConfig
+        return SDUNet(SDUNetConfig.sd_x4(), device=dev)
+    if family == "sd_vae":
+        from regen3d_tpu_torch.models.sd_vae import SDAutoencoderKL, SDVAEConfig
+        return SDAutoencoderKL(SDVAEConfig(), device=dev)
+    if family == "esrgan":
+        from regen3d_tpu_torch.models.esrgan import ESRGANConfig, RRDBNet
+        return RRDBNet(ESRGANConfig.x4plus(), device=dev)
     raise SystemExit(f"no full-size module wired for {family} "
                      f"({conversion.FAMILIES[family].status})")
 
@@ -89,7 +98,7 @@ def main(argv=None) -> int:
         for fam in sorted(conversion.FAMILIES):
             status = conversion.FAMILIES[fam].status
             errs = conversion.selftest(fam)
-            verdict = ("waiting for ROADMAP Queue 1 item 5"
+            verdict = ("waiting for ROADMAP Queue 1 item 5c"
                        if status == "pending" else
                        "OK" if not errs else errs[:5])
             print(f"{fam:14s} [{status:11s}]: {verdict}")

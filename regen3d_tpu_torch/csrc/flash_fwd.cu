@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores: plain
-// (head dims 8, 16, 32, 64, 96 and 128) and with SAM's factored key-grid bias
-// (D = 80). bf16 q, k, v and o; f32 bias factors; f32 row logsumexp in the
+// (head dims 4, 8, 16, 32, 64, 96, 128 and 512) and with SAM's factored
+// key-grid bias (D = 80). bf16 q, k, v and o; f32 bias factors; f32 row logsumexp in the
 // natural log, which the backward kernels (flash_bwd.cu) read.
 //
 // Replaces: regen3d_tpu/ops/attention.py::_flash_fwd_kernel (reached through
@@ -80,6 +80,39 @@
 //   instance does the same arithmetic, so o's first 8 columns and lse
 //   agree with it bit for bit. At the baselines' shapes (a few objects'
 //   16 tokens, 4 heads) the launch bounds it, not bytes or operations.
+//   D = 4 (the tiny SD UNet's heads) is the same at half a chunk: each
+//   row's 8 bytes are copied and the other 24 zero-filled (tc_tiles.cuh's
+//   load_tile), p·v skips the same second tile, and the store writes 8
+//   bytes a row, so it agrees bit for bit with the D = 8 and D = 16
+//   instances on zero-padded inputs.
+//
+// * D = 512 (the SD VAE's mid-block attention: one head of 512 over the
+//   64² latent grid) is its own kernel, fwd_wide_kernel. At D ≤ 128 a warp
+//   keeps its rows' whole o in registers; a 16-row slice of o at D = 512 is
+//   256 f32 registers a thread, past the 255 a thread has. So the block
+//   (64 query rows, eight warps) splits the two products differently:
+//   - s = q·kᵀ (64 rows × 64 keys, reduced over D in 32 steps of 16): warp
+//     w takes m16 tile w % 4 and key half w / 4, its Q and K fragments
+//     read by ldmatrix from the block's shared tiles at every step (the Q
+//     fragments of a row at D = 512 are 128 registers, so they do not stay);
+//   - the online softmax: each row's max over its key half by quad
+//     shuffles, then over both halves through shared memory; both warps of
+//     a row tile keep the same (m, alpha) and their own half's sum l, and
+//     p goes to shared memory as bf16 (64 × 64), alpha beside it;
+//   - o += p·v: warp w owns o's columns [64·w, 64·w + 64) for all 64 rows
+//     (four m16 tiles × eight n8 tiles, 128 f32 registers a thread),
+//     rescales them by each row's alpha, and multiplies the shared p by its
+//     columns of V (ldmatrix.trans).
+//   Q, one K tile and one V tile (64 KB each), p and the row statistics
+//   take 201 KB of shared memory, so there is one stage of each: K tile
+//   t + 1 streams in while p·v of tile t runs, V tile t + 1 while q·kᵀ of
+//   tile t + 1 runs. Rounding is the other instances': p to bf16 once, o
+//   once; keys past Sk are zero-filled and masked, rows past Sq never
+//   stored. Operations bound it: at (B, 1, 4096, 4096, 512) 4·S²·D is
+//   34.4 GFLOP a head against 16.8 MB of q, k, v and o. Each block reads
+//   every key tile (64 query rows a block: 64 blocks a head, half of the
+//   132 SMs at B = 1), and its fragments come from shared memory for
+//   every product, which the D ≤ 128 instances keep in registers.
 //
 // Shared memory passes 48 KB, so the launches opt in with
 // cudaFuncSetAttribute.
@@ -434,6 +467,236 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// D = 512 (fwd_wide_kernel): rows a block, keys a tile, threads a block
+constexpr int WIDE_D = 512;
+constexpr int WIDE_BM = 64;
+constexpr int WIDE_BN = 64;
+constexpr int WIDE_NT = 256;
+
+__global__ void __launch_bounds__(WIDE_NT, 1)
+fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, int sq, int sk, float scale) {
+  constexpr int D = WIDE_D, BM = WIDE_BM, BN = WIDE_BN;
+  constexpr int CPR = D / 8;         // 16-byte chunks a row
+  constexpr int OC = D / 8;          // o's columns a warp: 64
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][D], Tile<D>
+  bf16* ks = qs + BM * D;                        // [BN][D]
+  bf16* vs = ks + BN * D;                        // [BN][D]
+  bf16* ps = vs + BN * D;                        // [BM][BN] p, Tile<BN>
+  float* red = reinterpret_cast<float*>(ps + BM * BN);  // [2][BM] half maxima
+  float* alpha = red + 2 * BM;                   // [BM] o's rescale
+  float* lsum = alpha + BM;                      // [2][BM] half sums
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int mt = warp & 3, half = warp >> 2;  // q·kᵀ: row tile, key half
+  const int c0 = warp * OC;                   // p·v: the warp's columns
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
+
+  // rows [r0, r0 + 64) of a [n][D] array into a tile; rows past n zeroed
+  auto load = [&](bf16* tile, const bf16* src, int r0, int n) {
+#pragma unroll 4
+    for (int i = tid; i < BN * CPR; i += WIDE_NT) {
+      const int r = i / CPR, c = i % CPR;
+      const bool in = r0 + r < n;
+      cp_async16(tile + Tile<D>::off(r, c * 8),
+                 src + (size_t)(in ? r0 + r : 0) * D + c * 8, in);
+    }
+  };
+  static_assert(BM == BN, "one copy loop for the Q, K and V tiles");
+
+  load(qs, qb, q0, sq);
+  load(ks, kb, 0, sk);
+  cp_async_commit();  // group: Q and K tile 0
+  load(vs, vb, 0, sk);
+  cp_async_commit();  // group: V tile 0
+
+  float acc[4][OC / 8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < OC / 8; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  // rows r_lo = 16·mt + g4 and r_lo + 8: running max (log2 units), and
+  // this key half's running sum
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const int r_lo = mt * 16 + g4, r_hi = r_lo + 8;
+  const float sl2 = scale * LOG2E;
+
+  const int nt = (sk + BN - 1) / BN;
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<1>();
+    __syncthreads();  // K tile t in
+
+    // s = q·kᵀ: this warp's 16 rows × its 32 keys
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 8
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      load_a<D>(qa, qs, mt * 16, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < 32; n += 16) {
+        uint32_t kf[4];
+        load_b_nk<D>(kf, ks, half * 32 + n, kk * 16, lane);
+        mma(s[n / 8], qa, kf[0], kf[1]);
+        mma(s[n / 8 + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // logits in log2 units, keys at or past sk at −inf; this half's maxima
+    const int key0 = t * BN + half * 32;
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + j * 8 + t4 * 2;
+      const bool in0 = key < sk, in1 = key + 1 < sk;
+      s[j][0] = in0 ? s[j][0] * sl2 : -INFINITY;
+      s[j][1] = in1 ? s[j][1] * sl2 : -INFINITY;
+      s[j][2] = in0 ? s[j][2] * sl2 : -INFINITY;
+      s[j][3] = in1 ? s[j][3] * sl2 : -INFINITY;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    if (t4 == 0) {
+      red[half * BM + r_lo] = mx_lo;
+      red[half * BM + r_hi] = mx_hi;
+    }
+    __syncthreads();  // every warp is done with K tile t; maxima in
+    if (t + 1 < nt) load(ks, kb, (t + 1) * BN, sk);
+    cp_async_commit();  // group: K tile t + 1 (empty after the last)
+
+    // both halves' max; the two warps of a row tile compute the same
+    // (m, alpha) from the same values
+    const float mn_lo = fmaxf(m_lo, fmaxf(red[r_lo], red[BM + r_lo]));
+    const float mn_hi = fmaxf(m_hi, fmaxf(red[r_hi], red[BM + r_hi]));
+    const float b_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float b_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float a_lo = exp2f(m_lo - b_lo), a_hi = exp2f(m_hi - b_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p0 = exp2f(s[j][0] - b_lo), p1 = exp2f(s[j][1] - b_lo);
+      const float p2 = exp2f(s[j][2] - b_hi), p3 = exp2f(s[j][3] - b_hi);
+      rs_lo += p0 + p1;
+      rs_hi += p2 + p3;
+      const int col = half * 32 + j * 8 + t4 * 2;
+      *reinterpret_cast<uint32_t*>(ps + Tile<BN>::off(r_lo, col)) =
+          pack_bf16(p0, p1);
+      *reinterpret_cast<uint32_t*>(ps + Tile<BN>::off(r_hi, col)) =
+          pack_bf16(p2, p3);
+    }
+    l_lo = l_lo * a_lo + rs_lo;
+    l_hi = l_hi * a_hi + rs_hi;
+    if (half == 0 && t4 == 0) {
+      alpha[r_lo] = a_lo;
+      alpha[r_hi] = a_hi;
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // V tile t in; p and alpha in
+
+    // o = alpha·o + p·v over the warp's 64 columns of all 64 rows
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = alpha[i * 16 + g4], ah = alpha[i * 16 + g4 + 8];
+#pragma unroll
+      for (int j = 0; j < OC / 8; ++j) {
+        acc[i][j][0] *= al;
+        acc[i][j][1] *= al;
+        acc[i][j][2] *= ah;
+        acc[i][j][3] *= ah;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_a<BN>(pa[i], ps, i * 16, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < OC; n += 16) {
+        uint32_t vf[4];
+        load_b_kn<D>(vf, vs, kk * 16, c0 + n, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma(acc[i][n / 8], pa[i], vf[0], vf[1]);
+          mma(acc[i][n / 8 + 1], pa[i], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with V tile t and p
+    if (t + 1 < nt) load(vs, vb, (t + 1) * BN, sk);
+    cp_async_commit();  // group: V tile t + 1 (empty after the last)
+  }
+  cp_async_wait<0>();
+
+  // each row's sum: its four lanes, then the two key halves in order
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if (t4 == 0) {
+    lsum[half * BM + r_lo] = l_lo;
+    lsum[half * BM + r_hi] = l_hi;
+  }
+  __syncthreads();
+
+  // o = acc / l, rounded to bf16 once; lse in the natural log
+  bf16* ob = o + (size_t)bh * sq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rl = i * 16 + g4, rh = rl + 8;
+    const float il = 1.f / fmaxf(lsum[rl] + lsum[BM + rl], 1e-30f);
+    const float ih = 1.f / fmaxf(lsum[rh] + lsum[BM + rh], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < OC / 8; ++j) {
+      const int col = c0 + j * 8 + t4 * 2;
+      if (q0 + rl < sq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)(q0 + rl) * D + col) =
+            pack_bf16(acc[i][j][0] * il, acc[i][j][1] * il);
+      if (q0 + rh < sq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)(q0 + rh) * D + col) =
+            pack_bf16(acc[i][j][2] * ih, acc[i][j][3] * ih);
+    }
+  }
+  if (half == 0 && t4 == 0) {
+    float* lb = lse + (size_t)bh * sq;
+    const float ll = fmaxf(lsum[r_lo] + lsum[BM + r_lo], 1e-30f);
+    const float lh = fmaxf(lsum[r_hi] + lsum[BM + r_hi], 1e-30f);
+    if (q0 + r_lo < sq) lb[q0 + r_lo] = (m_lo + log2f(ll)) * LN2;
+    if (q0 + r_hi < sq) lb[q0 + r_hi] = (m_hi + log2f(lh)) * LN2;
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int bh, int sq, int sk, float scale,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * ((WIDE_BM + 2 * WIDE_BN) * WIDE_D +
+                                      WIDE_BM * WIDE_BN) +
+                      sizeof(float) * 5 * WIDE_BM;
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + WIDE_BM - 1) / WIDE_BM, bh);
+  fwd_wide_kernel<<<grid, WIDE_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sq, sk, scale);
+  return cudaGetLastError();
+}
+
 // the keys are split across the warps for a short query set
 template <int D>
 cudaError_t launch_plain(const void* q, const void* k, const void* v, void* o,
@@ -460,12 +723,14 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 4: return (int)launch_plain<4>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 8: return (int)launch_plain<8>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 16: return (int)launch_plain<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 32: return (int)launch_plain<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 64: return (int)launch_plain<64>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 96: return (int)launch_plain<96>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 128: return (int)launch_plain<128>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case WIDE_D: return (int)launch_wide(q, k, v, o, lse, bh, sq, sk, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -82,6 +82,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
@@ -133,13 +139,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Copy rows [r0, r0 + ROWS) of a [n][DG] bf16 array into a tile laid out
 // by Tile<D>; rows at or past n are zero-filled, and so are the columns at
 // or past DG (DG < D: a head dim below the tensor cores' depth of 16,
-// widened in shared memory only).
+// widened in shared memory only). At DG = 4 a row is half a 16-byte chunk,
+// 8-byte aligned: two 8-byte copies a chunk, the second with no source bytes.
 template <int D, int ROWS, int DG = D>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
                                           int n, int tid) {
   constexpr int CPR = D / 8;
   static_assert(ROWS * CPR % TC_NT == 0, "whole chunks per thread");
-  static_assert(DG % 8 == 0 && DG <= D, "whole chunks of the tile's rows");
+  static_assert((DG % 8 == 0 || DG == 4) && DG <= D,
+                "whole chunks, or half of one, of the tile's rows");
 #pragma unroll
   for (int it = 0; it < ROWS * CPR / TC_NT; ++it) {
     const int i = tid + it * TC_NT;
@@ -147,11 +155,17 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
     bool in = r0 + r < n;
     int col = c * 8;
     if constexpr (DG < D) {
-      in = in && c < DG / 8;
+      in = in && c < (DG + 7) / 8;
       col = in ? col : 0;
     }
-    cp_async16(tile + Tile<D>::off(r, c * 8),
-               src + (size_t)(in ? r0 + r : 0) * DG + col, in);
+    bf16* dst = tile + Tile<D>::off(r, c * 8);
+    const bf16* from = src + (size_t)(in ? r0 + r : 0) * DG + col;
+    if constexpr (DG % 8 != 0) {
+      cp_async8(dst, from, in);
+      cp_async8(dst + 4, from, false);
+    } else {
+      cp_async16(dst, from, in);
+    }
   }
 }
 
@@ -181,7 +195,7 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile,
 
 // Write a warp's 16 × D f32 accumulators as bf16 into its rows r0.. of a
 // tile, then copy the first DG columns of those rows to dst ([n][DG]) rows
-// [g0, g0 + 16) below n with 16-byte stores.
+// [g0, g0 + 16) below n with 16-byte stores (8-byte ones at DG = 4).
 template <int D, int DG = D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
                                            bf16* tile, int r0, bf16* dst,
@@ -202,9 +216,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
   for (int it = 0; it < 16 * CPR / 32; ++it) {
     const int i = lane + it * 32;
     const int r = i / CPR, c = i % CPR;
-    if (g0 + r < n && (DG == D || c < DG / 8))
+    if constexpr (DG % 8 != 0) {
+      if (g0 + r < n && c == 0)
+        *reinterpret_cast<uint2*>(dst + (size_t)(g0 + r) * DG) =
+            *reinterpret_cast<const uint2*>(tile + Tile<D>::off(r0 + r, 0));
+    } else if (g0 + r < n && (DG == D || c < DG / 8)) {
       *reinterpret_cast<uint4*>(dst + (size_t)(g0 + r) * DG + c * 8) =
           *reinterpret_cast<const uint4*>(tile + Tile<D>::off(r0 + r, c * 8));
+    }
   }
 }
 

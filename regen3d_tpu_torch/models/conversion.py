@@ -29,7 +29,7 @@ STATUS per family (how literally the upstream key layout is transcribed):
   diverged     — the architecture differs from the upstream model on
                  purpose (see the model's docstring), so no key mapping can
                  exist; ``rules()`` raises
-  pending      — the model is not ported yet (ROADMAP Queue 1 item 5);
+  pending      — the model is not ported yet (ROADMAP Queue 1 item 5c);
                  ``rules()`` and ``tiny_model`` raise
 
 Upstream-only tensors the design drops (SAM's mask-prompt downscaler, DPT's
@@ -1053,6 +1053,357 @@ def _midi_invert(path, arr):
 
 
 # ---------------------------------------------------------------------------
+# SD UNet + VAE (diffusers UNet2DConditionModel / AutoencoderKL layouts) —
+# exact. One table serves the SD-x4 upscaler, Marigold's intrinsics/normals
+# UNets, and the multiview texgen UNet (models/sd_unet.py docstring).
+# ---------------------------------------------------------------------------
+
+_RES_SUB = {"norm1": ("norm1",), "conv1": ("conv1",),
+            "time_emb_proj": ("time_emb_proj",), "norm2": ("norm2",),
+            "conv2": ("conv2",), "conv_shortcut": ("conv_shortcut",)}
+
+
+def _sd_resnet_rules(torch_prefix: str, path_of) -> list:
+    r = []
+    r.append((rf"{torch_prefix}\.(?P<s>norm1|norm2)\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + (m.group("s"),
+                                         "scale" if m.group("wb") == "weight"
+                                         else "bias"), None))
+    r.append((rf"{torch_prefix}\.(?P<s>conv1|conv2|conv_shortcut)\."
+              r"(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + (m.group("s"),
+                                         "kernel" if m.group("wb") == "weight"
+                                         else "bias"), T_CONV))
+    r.append((rf"{torch_prefix}\.time_emb_proj\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + ("time_emb_proj",
+                                         "kernel" if m.group("wb") == "weight"
+                                         else "bias"), T_LIN))
+    return r
+
+
+def _sd_attn_rules(torch_prefix: str, path_of) -> list:
+    """Transformer2DModel rules: norm/proj_in/proj_out +
+    transformer_blocks.0.{norm1-3, attn1/attn2 (to_q/to_k/to_v/to_out.0),
+    ff.net.0.proj, ff.net.2}."""
+    r = []
+    r.append((rf"{torch_prefix}\.norm\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + ("norm",
+                                         "scale" if m.group("wb") == "weight"
+                                         else "bias"), None))
+    r.append((rf"{torch_prefix}\.(?P<s>proj_in|proj_out)\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + (m.group("s"),
+                                         "kernel" if m.group("wb") == "weight"
+                                         else "bias"), T_LIN))
+    B = rf"{torch_prefix}\.transformer_blocks\.0"
+    r.append((rf"{B}\.norm(?P<n>[123])\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + ("transformer_blocks_0",
+                                         f"norm{m.group('n')}",
+                                         "scale" if m.group("wb") == "weight"
+                                         else "bias"), None))
+    r.append((rf"{B}\.attn(?P<n>[12])\.to_(?P<p>[qkv])\.weight",
+              lambda k, m: path_of(m) + ("transformer_blocks_0",
+                                         f"attn{m.group('n')}",
+                                         f"to_{m.group('p')}", "kernel"),
+              T_LIN))
+    r.append((rf"{B}\.attn(?P<n>[12])\.to_out\.0\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + ("transformer_blocks_0",
+                                         f"attn{m.group('n')}", "to_out_0",
+                                         "kernel" if m.group("wb") == "weight"
+                                         else "bias"), T_LIN))
+    r.append((rf"{B}\.ff\.net\.0\.proj\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + ("transformer_blocks_0", "ff",
+                                         "net_0_proj",
+                                         "kernel" if m.group("wb") == "weight"
+                                         else "bias"), T_LIN))
+    r.append((rf"{B}\.ff\.net\.2\.(?P<wb>weight|bias)",
+              lambda k, m: path_of(m) + ("transformer_blocks_0", "ff",
+                                         "net_2",
+                                         "kernel" if m.group("wb") == "weight"
+                                         else "bias"), T_LIN))
+    return r
+
+
+def sd_unet_rules() -> list:
+    r = []
+    r.append((r"conv_in\.(?P<wb>weight|bias)",
+              lambda k, m: ("conv_in", "kernel" if m.group("wb") == "weight"
+                            else "bias"), T_CONV))
+    r.append((r"time_embedding\.linear_(?P<n>[12])\.(?P<wb>weight|bias)",
+              lambda k, m: (f"time_embedding_linear_{m.group('n')}",
+                            "kernel" if m.group("wb") == "weight" else "bias"),
+              T_LIN))
+    r.append((r"class_embedding\.weight",
+              lambda k, m: ("class_embedding", "embedding"), None))
+    r += _sd_resnet_rules(
+        r"down_blocks\.(?P<i>\d+)\.resnets\.(?P<j>\d+)",
+        lambda m: (f"down_{m.group('i')}_resnet_{m.group('j')}",))
+    r += _sd_attn_rules(
+        r"down_blocks\.(?P<i>\d+)\.attentions\.(?P<j>\d+)",
+        lambda m: (f"down_{m.group('i')}_attn_{m.group('j')}",))
+    r.append((r"down_blocks\.(?P<i>\d+)\.downsamplers\.0\.conv\."
+              r"(?P<wb>weight|bias)",
+              lambda k, m: (f"down_{m.group('i')}_downsample",
+                            "kernel" if m.group("wb") == "weight" else "bias"),
+              T_CONV))
+    r += _sd_resnet_rules(r"mid_block\.resnets\.(?P<j>[01])",
+                          lambda m: (f"mid_resnet_{m.group('j')}",))
+    r += _sd_attn_rules(r"mid_block\.attentions\.0",
+                        lambda m: ("mid_attn_0",))
+    r += _sd_resnet_rules(
+        r"up_blocks\.(?P<i>\d+)\.resnets\.(?P<j>\d+)",
+        lambda m: (f"up_{m.group('i')}_resnet_{m.group('j')}",))
+    r += _sd_attn_rules(
+        r"up_blocks\.(?P<i>\d+)\.attentions\.(?P<j>\d+)",
+        lambda m: (f"up_{m.group('i')}_attn_{m.group('j')}",))
+    r.append((r"up_blocks\.(?P<i>\d+)\.upsamplers\.0\.conv\."
+              r"(?P<wb>weight|bias)",
+              lambda k, m: (f"up_{m.group('i')}_upsample",
+                            "kernel" if m.group("wb") == "weight" else "bias"),
+              T_CONV))
+    r.append((r"conv_norm_out\.(?P<wb>weight|bias)",
+              lambda k, m: ("conv_norm_out",
+                            "scale" if m.group("wb") == "weight" else "bias"),
+              None))
+    r.append((r"conv_out\.(?P<wb>weight|bias)",
+              lambda k, m: ("conv_out",
+                            "kernel" if m.group("wb") == "weight" else "bias"),
+              T_CONV))
+    return r
+
+
+def _sd_unet_invert(path, arr):
+    a = np.asarray(arr)
+    wb = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+    def resnet_inv(prefix, rel):
+        sub = rel[0]
+        if sub in ("norm1", "norm2"):
+            return (f"{prefix}.{sub}.{wb[rel[1]]}", a)
+        if sub in ("conv1", "conv2", "conv_shortcut"):
+            return (f"{prefix}.{sub}.{wb[rel[1]]}",
+                    j2t_conv(a) if rel[1] == "kernel" else a)
+        if sub == "time_emb_proj":
+            return (f"{prefix}.time_emb_proj.{wb[rel[1]]}",
+                    j2t_linear(a) if rel[1] == "kernel" else a)
+        return None
+
+    def attn_inv(prefix, rel):
+        sub = rel[0]
+        if sub == "norm":
+            return (f"{prefix}.norm.{wb[rel[1]]}", a)
+        if sub in ("proj_in", "proj_out"):
+            return (f"{prefix}.{sub}.{wb[rel[1]]}",
+                    j2t_linear(a) if rel[1] == "kernel" else a)
+        if sub == "transformer_blocks_0":
+            s2 = rel[1]
+            if s2.startswith("norm"):
+                return (f"{prefix}.transformer_blocks.0.{s2}.{wb[rel[2]]}", a)
+            if s2 in ("attn1", "attn2"):
+                p = rel[2]
+                if p == "to_out_0":
+                    return (f"{prefix}.transformer_blocks.0.{s2}.to_out.0."
+                            f"{wb[rel[3]]}",
+                            j2t_linear(a) if rel[3] == "kernel" else a)
+                return (f"{prefix}.transformer_blocks.0.{s2}.{p}.weight",
+                        j2t_linear(a))
+            if s2 == "ff":
+                nm = {"net_0_proj": "net.0.proj", "net_2": "net.2"}[rel[2]]
+                return (f"{prefix}.transformer_blocks.0.ff.{nm}.{wb[rel[3]]}",
+                        j2t_linear(a) if rel[3] == "kernel" else a)
+        return None
+
+    p0 = path[0]
+    if p0 == "conv_in" or p0 == "conv_out":
+        return (f"{p0}.{wb[path[1]]}", j2t_conv(a) if path[1] == "kernel"
+                else a)
+    if p0 == "conv_norm_out":
+        return (f"conv_norm_out.{wb[path[1]]}", a)
+    if p0.startswith("time_embedding_linear_"):
+        return (f"time_embedding.linear_{p0[-1]}.{wb[path[1]]}",
+                j2t_linear(a) if path[1] == "kernel" else a)
+    if p0 == "class_embedding":
+        return ("class_embedding.weight", a)
+    import re as _re
+    m = _re.match(r"(down|up)_(\d+)_resnet_(\d+)$", p0)
+    if m:
+        return resnet_inv(f"{m.group(1)}_blocks.{m.group(2)}.resnets."
+                          f"{m.group(3)}", path[1:])
+    m = _re.match(r"(down|up)_(\d+)_attn_(\d+)$", p0)
+    if m:
+        return attn_inv(f"{m.group(1)}_blocks.{m.group(2)}.attentions."
+                        f"{m.group(3)}", path[1:])
+    m = _re.match(r"(down|up)_(\d+)_(downsample|upsample)$", p0)
+    if m:
+        kind = "downsamplers" if m.group(3) == "downsample" else "upsamplers"
+        return (f"{m.group(1)}_blocks.{m.group(2)}.{kind}.0.conv."
+                f"{wb[path[1]]}", j2t_conv(a) if path[1] == "kernel" else a)
+    m = _re.match(r"mid_resnet_([01])$", p0)
+    if m:
+        return resnet_inv(f"mid_block.resnets.{m.group(1)}", path[1:])
+    if p0 == "mid_attn_0":
+        return attn_inv("mid_block.attentions.0", path[1:])
+    return None
+
+
+def sd_vae_rules() -> list:
+    r = []
+    for side in ("encoder", "decoder"):
+        S = side
+        r.append((rf"{S}\.conv_in\.(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, "conv_in",
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_CONV))
+        # VAE resnets have no time embedding
+        r.append((rf"{S}\.(?P<blk>down_blocks\.(?P<i>\d+)|mid_block)\."
+                  r"resnets\.(?P<j>\d+)\.(?P<s>norm[12])\.(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, _vae_block_name(m),
+                                     m.group("s"),
+                                     "scale" if m.group("wb") == "weight"
+                                     else "bias"), None))
+        r.append((rf"{S}\.(?P<blk>down_blocks\.(?P<i>\d+)|mid_block)\."
+                  r"resnets\.(?P<j>\d+)\.(?P<s>conv[12]|conv_shortcut)\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, _vae_block_name(m), m.group("s"),
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_CONV))
+        r.append((rf"{S}\.(?P<blk>up_blocks\.(?P<i>\d+))\.resnets\."
+                  r"(?P<j>\d+)\.(?P<s>norm[12])\.(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, f"up_{m.group('i')}_resnet_"
+                                     f"{m.group('j')}", m.group("s"),
+                                     "scale" if m.group("wb") == "weight"
+                                     else "bias"), None))
+        r.append((rf"{S}\.(?P<blk>up_blocks\.(?P<i>\d+))\.resnets\."
+                  r"(?P<j>\d+)\.(?P<s>conv[12]|conv_shortcut)\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, f"up_{m.group('i')}_resnet_"
+                                     f"{m.group('j')}", m.group("s"),
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_CONV))
+        r.append((rf"{S}\.down_blocks\.(?P<i>\d+)\.downsamplers\.0\.conv\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, f"down_{m.group('i')}_downsample",
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_CONV))
+        r.append((rf"{S}\.up_blocks\.(?P<i>\d+)\.upsamplers\.0\.conv\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, f"up_{m.group('i')}_upsample",
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_CONV))
+        r.append((rf"{S}\.mid_block\.attentions\.0\.group_norm\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, "mid_attn", "group_norm",
+                                     "scale" if m.group("wb") == "weight"
+                                     else "bias"), None))
+        r.append((rf"{S}\.mid_block\.attentions\.0\.to_(?P<p>[qkv])\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, "mid_attn", f"to_{m.group('p')}",
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_LIN))
+        r.append((rf"{S}\.mid_block\.attentions\.0\.to_out\.0\."
+                  r"(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, "mid_attn", "to_out_0",
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_LIN))
+        r.append((rf"{S}\.conv_norm_out\.(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, "conv_norm_out",
+                                     "scale" if m.group("wb") == "weight"
+                                     else "bias"), None))
+        r.append((rf"{S}\.conv_out\.(?P<wb>weight|bias)",
+                  lambda k, m, S=S: (S, "conv_out",
+                                     "kernel" if m.group("wb") == "weight"
+                                     else "bias"), T_CONV))
+    r.append((r"(?P<q>quant_conv|post_quant_conv)\.(?P<wb>weight|bias)",
+              lambda k, m: (m.group("q"),
+                            "kernel" if m.group("wb") == "weight" else "bias"),
+              T_CONV))
+    return r
+
+
+def _vae_block_name(m) -> str:
+    if m.group("blk") == "mid_block":
+        return f"mid_resnet_{m.group('j')}"
+    return f"down_{m.group('i')}_resnet_{m.group('j')}"
+
+
+def _sd_vae_invert(path, arr):
+    a = np.asarray(arr)
+    wb = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+    import re as _re
+    if path[0] in ("quant_conv", "post_quant_conv"):
+        return (f"{path[0]}.{wb[path[1]]}",
+                j2t_conv(a) if path[1] == "kernel" else a)
+    side = path[0]
+    p1 = path[1]
+    if p1 in ("conv_in", "conv_out"):
+        return (f"{side}.{p1}.{wb[path[2]]}",
+                j2t_conv(a) if path[2] == "kernel" else a)
+    if p1 == "conv_norm_out":
+        return (f"{side}.conv_norm_out.{wb[path[2]]}", a)
+    m = _re.match(r"mid_resnet_([01])$", p1)
+    if m:
+        prefix = f"{side}.mid_block.resnets.{m.group(1)}"
+        s = path[2]
+        return (f"{prefix}.{s}.{wb[path[3]]}",
+                j2t_conv(a) if path[3] == "kernel" and s.startswith("conv")
+                else a)
+    if p1 == "mid_attn":
+        s = path[2]
+        if s == "group_norm":
+            return (f"{side}.mid_block.attentions.0.group_norm."
+                    f"{wb[path[3]]}", a)
+        nm = "to_out.0" if s == "to_out_0" else s
+        return (f"{side}.mid_block.attentions.0.{nm}.{wb[path[3]]}",
+                j2t_linear(a) if path[3] == "kernel" else a)
+    m = _re.match(r"(down|up)_(\d+)_resnet_(\d+)$", p1)
+    if m:
+        prefix = (f"{side}.{m.group(1)}_blocks.{m.group(2)}.resnets."
+                  f"{m.group(3)}")
+        s = path[2]
+        return (f"{prefix}.{s}.{wb[path[3]]}",
+                j2t_conv(a) if path[3] == "kernel" and s.startswith("conv")
+                else a)
+    m = _re.match(r"(down|up)_(\d+)_(downsample|upsample)$", p1)
+    if m:
+        kind = "downsamplers" if m.group(3) == "downsample" else "upsamplers"
+        return (f"{side}.{m.group(1)}_blocks.{m.group(2)}.{kind}.0.conv."
+                f"{wb[path[2]]}", j2t_conv(a) if path[2] == "kernel" else a)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# RealESRGAN x4plus (RRDBNet) — the Hunyuan3D-2.1 texture upscaler
+# (run_hunyuan21.py:112). Upstream BasicSR key schema:
+#   conv_first / body.{i}.rdb{j}.conv{k} / conv_body / conv_up1 / conv_up2
+#   / conv_hr / conv_last, each .weight/.bias. Checkpoints store the net
+#   under 'params_ema' (the rules take the key with or without it).
+# ---------------------------------------------------------------------------
+
+def esrgan_rules() -> list:
+    def conv(path):
+        return lambda k, m: path(m) + (
+            "kernel" if m.group("wb") == "weight" else "bias",)
+    r = []
+    r.append((r"(?:params_ema\.)?body\.(?P<i>\d+)\.rdb(?P<j>[123])\."
+              r"conv(?P<c>[1-5])\.(?P<wb>weight|bias)",
+              conv(lambda m: (f"body_{m.group('i')}", f"rdb{m.group('j')}",
+                              f"conv{m.group('c')}")), T_CONV))
+    r.append((r"(?:params_ema\.)?(?P<n>conv_first|conv_body|conv_up1|"
+              r"conv_up2|conv_hr|conv_last)\.(?P<wb>weight|bias)",
+              conv(lambda m: (m.group("n"),)), T_CONV))
+    return r
+
+
+def _esrgan_invert(path, arr):
+    a = np.asarray(arr)
+    wb = "weight" if path[-1] == "kernel" else "bias"
+    t = j2t_conv(a) if path[-1] == "kernel" else a
+    if path[0].startswith("body_"):
+        i = path[0][5:]
+        return (f"body.{i}.{path[1]}.{path[2]}.{wb}", t)
+    return (f"{path[0]}.{wb}", t)
+
+
+# ---------------------------------------------------------------------------
 # the port's modules at their tiny configs (f32, CPU, from a generator)
 # ---------------------------------------------------------------------------
 
@@ -1146,11 +1497,33 @@ def _matting_tiny(gen):
     return m
 
 
+def _sd_unet_tiny(gen):
+    from regen3d_tpu_torch.models import sd_unet
+    m = sd_unet.SDUNet(_f32(sd_unet.SDUNetConfig.tiny(class_embeddings=4)),
+                       device="cpu")
+    sd_unet.init_flax_style_(m, gen)
+    return m
+
+
+def _sd_vae_tiny(gen):
+    from regen3d_tpu_torch.models import sd_unet, sd_vae
+    m = sd_vae.SDAutoencoderKL(_f32(sd_vae.SDVAEConfig.tiny()), device="cpu")
+    sd_unet.init_flax_style_(m, gen)
+    return m
+
+
+def _esrgan_tiny(gen):
+    from regen3d_tpu_torch.models import esrgan
+    m = esrgan.RRDBNet(esrgan.ESRGANConfig.tiny(), device="cpu")
+    esrgan.init_flax_style_(m, gen)
+    return m
+
+
 def _pending(name: str):
     def fn(*_args):
         raise NotImplementedError(
             f"family '{name}': the model is not ported yet; its rule table "
-            "comes with it (ROADMAP Queue 1 item 5)")
+            "comes with it (ROADMAP Queue 1 item 5c)")
     return fn
 
 
@@ -1189,11 +1562,20 @@ FAMILIES: Dict[str, Family] = {
     "midi": Family("midi", "provisional", midi_rules,
                    lambda gen: _dit_tiny(gen, cross_instance=True),
                    _midi_invert),
+    "sd_unet": Family("sd_unet", "exact", sd_unet_rules, _sd_unet_tiny,
+                      _sd_unet_invert),
+    "sd_vae": Family("sd_vae", "exact", sd_vae_rules, _sd_vae_tiny,
+                     _sd_vae_invert),
+    # Marigold's intrinsics/normals UNets are UNet2DConditionModels: the
+    # sd_unet table under another name, as in the JAX package
+    "marigold": Family("marigold", "exact", sd_unet_rules, _sd_unet_tiny,
+                       _sd_unet_invert),
+    "esrgan": Family("esrgan", "exact", esrgan_rules, _esrgan_tiny,
+                     _esrgan_invert),
+    # the FLUX transformer waits for its model (Queue 1 item 5c)
+    "flux": Family("flux", "pending", _pending("flux"), _pending("flux"),
+                   _no_invert),
 }
-# the JAX package's other families wait for their models (Queue 1 item 5)
-for _name in ("sd_unet", "sd_vae", "marigold", "esrgan", "flux"):
-    FAMILIES[_name] = Family(_name, "pending", _pending(_name),
-                             _pending(_name), _no_invert)
 
 
 def tiny_init(family: str, seed: int = 0) -> Dict[str, Any]:

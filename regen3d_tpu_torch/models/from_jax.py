@@ -11,7 +11,12 @@ models.vggt.VGGT`, ``regen3d_tpu.models.sam.SAM`` →
 ``regen3d_tpu.models.shapevae.{ShapeEncoder,ShapeDecoder}`` →
 :mod:`regen3d_tpu_torch.models.shapevae`, and phase 1's detector, saliency
 net and Depth-Anything (``regen3d_tpu.models.{detector,saliency,
-depth_anything}`` → their namesakes in :mod:`regen3d_tpu_torch.models`).
+depth_anything}`` → their namesakes in :mod:`regen3d_tpu_torch.models`),
+and phase 3's texture models: ``regen3d_tpu.models.sd_unet.SDUNet``,
+``sd_vae.SDAutoencoderKL`` and ``esrgan.RRDBNet`` → their namesakes, and
+``regen3d_tpu.pipeline.texgen.MultiviewTexGen`` (``cond_proj``,
+``cam_proj``, ``unet/…``) → :class:`~regen3d_tpu_torch.pipeline.texgen.
+MultiviewTexGen`.
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
@@ -25,7 +30,8 @@ mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with
   transposed convolutions is named per model, since the shapes cannot tell
   (where I = O a Conv rule would load mirrored taps in silence);
 * ``LayerNorm.scale`` and ``RMSNorm.scale`` → ``weight``;
-* ``Embed.embedding`` (the detector's ``byte_embed``) → ``Embedding.weight``
+* ``Embed.embedding`` (the detector's ``byte_embed``, the SD UNet's
+  ``class_embedding``) → ``Embedding.weight``
   (both (vocabulary, width)); every other leaf
   (``bias``, ``latent_pos``, ``latent_queries``, ``inst_gate{i}``, SAM's
   tables) keeps its name.

@@ -57,11 +57,12 @@ class UNetConfig:
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm`` on NHWC: f32 statistics over (H, W, C/G) by
     the fast variance, f32 ``weight`` (flax's ``scale``) and ``bias``,
-    output in ``dtype``."""
+    output in ``dtype``; ``groups`` defaults to the largest count ≤ 32
+    that divides ``ch``."""
 
-    def __init__(self, ch, dtype=torch.float32, device="cuda"):
+    def __init__(self, ch, dtype=torch.float32, device="cuda", groups=None):
         super().__init__()
-        self.groups, self.dtype = _groups(ch), dtype
+        self.groups, self.dtype = groups or _groups(ch), dtype
         self.weight = nn.Parameter(torch.ones(ch, device=device))
         self.bias = nn.Parameter(torch.zeros(ch, device=device))
 

@@ -5,7 +5,9 @@ The reference's ``depth_from_image`` (global_utils.py:357-418) runs Marigold
 (``depth_large_model: true``) or Depth-Anything-V2-Small. The port runs
 :class:`~regen3d_tpu_torch.models.depth_anything.DepthAnything` when one is
 passed, on the device it was built on, and otherwise the offline prior the
-JAX package falls back to. Marigold waits for ROADMAP Queue 1 item 5. A
+JAX package falls back to. The JAX package has no Marigold depth either
+(it never reads ``depth_large_model``); Marigold's UNet checkpoints load
+through the ``marigold`` conversion family into ``models/sd_unet.py``. A
 ``depth_anything_checkpoint`` that exists loads the model
 (``pipeline/depth_distill.load_depth_checkpoint``: the JAX package's orbax
 directory or the port's, with its ``config.json``); a missing one falls

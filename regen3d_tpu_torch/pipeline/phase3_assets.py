@@ -19,9 +19,17 @@ change every instance's result. The
 default generator is the committed ``checkpoints/shape_distilled.npz``
 (``pipeline/shape_distill.py``), loaded on ``device``.
 
-Not ported: the multiview texture generator and the texel atlas
-(``use_multiview_texgen``, ``bake_texture_atlas``): ``run`` raises when
-either is set (ROADMAP Queue 1, the texture models).
+Two switches replace the vertex colours, as in the JAX package:
+``use_multiview_texgen`` generates the view ring with the multiview
+texture model (``pipeline/texgen.py``: random-init tiny SD UNet and VAE
+from seed 0, ``texgen_resolution``, ``texgen_steps``, ``max_num_view``)
+and bakes a texel atlas; under ``use_hunyuan21`` with
+``enable_texture_hy21`` the PBR ring (``max_num_view_hy21`` views) gives
+albedo and metallic-roughness atlases, the albedo upscaled by RealESRGAN
+×4 when ``realesrgan_ckpt_path`` names a checkpoint.
+``bake_texture_atlas`` bakes the object image from the frontal camera into
+a texel atlas. Both write the GLB's ``uvs`` and ``texture_png`` (and
+``mr_texture_png``).
 """
 
 from __future__ import annotations
@@ -303,18 +311,84 @@ def load_default_generator(cfg: Config,
     return gen
 
 
+def _texgen_mesh(cfg: Config, name, verts, faces, img, device) -> MeshData:
+    """``use_multiview_texgen``: the JAX CLI's tiny texture model (random
+    init from seed 0 for every object, noise from the config's seed), the
+    RGB ring, or under ``use_hunyuan21`` with ``enable_texture_hy21`` the
+    PBR ring with RealESRGAN ×4 from ``realesrgan_ckpt_path`` where that
+    file exists. The reference image is the object image in [0, 1], which
+    the texture path divides by 255 again, as the JAX package's does."""
+    from regen3d_tpu_torch.models.sd_unet import SDUNetConfig
+    from regen3d_tpu_torch.models.sd_vae import SDVAEConfig
+    from regen3d_tpu_torch.pipeline import texgen as tg
+
+    pbr = (bool(cfg.get("use_hunyuan21", False))
+           and bool(cfg.get("enable_texture_hy21", True)))
+    tcfg = tg.TexGenConfig(
+        num_views=int(cfg.get("max_num_view_hy21", 6) if pbr
+                      else cfg.get("max_num_view", 6)),
+        resolution=int(cfg.get("texgen_resolution", 64)),
+        steps=int(cfg.get("texgen_steps", 4)))
+    ucfg = SDUNetConfig.tiny(in_channels=12, class_embeddings=(
+        2 if pbr else 1) * tcfg.num_views)
+    model, vae = tg.init_texgen(
+        tcfg, torch.Generator(device=device).manual_seed(0), ucfg,
+        SDVAEConfig.tiny(), device=device)
+    noise = torch.Generator(device=device).manual_seed(
+        int(cfg.get("seed", 1234567)))
+    tpf = int(cfg.get("texels_per_face", 8))
+    if not pbr:
+        nv, nf, uvs, png = tg.texture_mesh(verts, faces, img[..., :3], tcfg,
+                                           model, vae, tpf, noise)
+        return MeshData(name=name, vertices=nv, faces=nf, uvs=uvs,
+                        texture_png=png)
+    esrgan = None
+    ckpt = str(cfg.get("realesrgan_ckpt_path", "") or "")
+    if ckpt and os.path.exists(ckpt):
+        from regen3d_tpu_torch.models.esrgan import ESRGANConfig, RRDBNet
+        from regen3d_tpu_torch.models.weights import load_model
+
+        esrgan = load_model(RRDBNet(ESRGANConfig.x4plus(), device=device),
+                            ckpt)
+    nv, nf, uvs, png, mr_png = tg.texture_mesh_pbr(
+        verts, faces, img[..., :3], tcfg, model, vae, tpf, noise, esrgan)
+    return MeshData(name=name, vertices=nv, faces=nf, uvs=uvs,
+                    texture_png=png, mr_texture_png=mr_png, metallic=1.0,
+                    roughness=1.0)
+
+
+def _textured_mesh(cfg: Config, name, verts, faces, img, device) -> MeshData:
+    """The object's GLB mesh: the multiview texture path, the texel atlas
+    of the object image from the frontal camera (``bake_texture_atlas``),
+    or vertex colours."""
+    if bool(cfg.get("use_multiview_texgen", False)):
+        return _texgen_mesh(cfg, name, verts, faces, img, device)
+    if bool(cfg.get("bake_texture_atlas", False)):
+        from regen3d_tpu_torch.pipeline.texture import bake_texture_atlas
+
+        rgb = img[..., :3]
+        center = verts.mean(0)
+        ext = float(np.linalg.norm(verts.max(0) - verts.min(0))) + 1e-6
+        cam = lookat_camera(center + np.asarray([0, 0, -2.2 * ext],
+                                                np.float32),
+                            center, rgb.shape[:2],
+                            focal_px=rgb.shape[0] * 1.1, device=device)
+        nv, nf, uvs, png = bake_texture_atlas(
+            verts, faces, [(cam, rgb)],
+            texels_per_face=int(cfg.get("texels_per_face", 8)))
+        return MeshData(name=name, vertices=nv, faces=nf, uvs=uvs,
+                        texture_png=png)
+    return MeshData(name=name, vertices=verts, faces=faces,
+                    vertex_colors=vertex_colors_from_image(verts, faces, img,
+                                                           device=device))
+
+
 def run(cfg: Config, generator: Optional[AssetGenerator] = None,
         rng: Optional[torch.Generator] = None, device="cuda") -> List[str]:
     """Phase 3 on ``device``: one GLB per prepped object image; returns the
     names written. ``rng`` (on ``device``) defaults to the config's seed;
     ``generator`` to :func:`load_default_generator`'s, else a random-init
     tiny one."""
-    if bool(cfg.get("use_multiview_texgen", False)) \
-            or bool(cfg.get("bake_texture_atlas", False)):
-        raise NotImplementedError(
-            "use_multiview_texgen and bake_texture_atlas need the texture "
-            "models, which are not ported yet (ROADMAP Queue 1, the texture "
-            "models)")
     art = Artifacts(cfg)
     src_dir = art.prepped_dir if os.path.isdir(art.prepped_dir) else \
         cfg.path("input_folder_hy")
@@ -377,9 +451,8 @@ def run(cfg: Config, generator: Optional[AssetGenerator] = None,
         out_path = art.asset_glb(name)
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
         t0 = time.perf_counter()
-        colors = vertex_colors_from_image(verts, faces, img, device=device)
-        save_glb(out_path, SceneData(meshes=[MeshData(
-            name=name, vertices=verts, faces=faces, vertex_colors=colors)]))
+        save_glb(out_path, SceneData(meshes=[_textured_mesh(
+            cfg, name, verts, faces, img, device)]))
         t_tex += time.perf_counter() - t0
         done.append(name)
         log.info("phase3: %s → %d verts / %d faces", name, len(verts),

@@ -46,14 +46,16 @@ from regen3d_tpu_torch.utils.ply import load_ply, save_ply
 log = logging.getLogger(__name__)
 
 
-def extract_intrinsics(cfg: Config) -> Optional[str]:
+def extract_intrinsics(cfg: Config, pipeline=None) -> Optional[str]:
     """Background PBR maps from the empty room (reference:
     extract_marigold_data, scene_optim.py:68-121 — Marigold intrinsics +
     normals pipelines writing albedo/roughness/metallic/normal_map.png to
     `images_marigold_base`).
 
-    The diffusion intrinsics model is not ported (ROADMAP Queue 1 item 11):
-    analytic priors keep the artifact set flowing: albedo = the image,
+    ``pipeline`` is the intrinsics model: a callable taking the image
+    (H, W, 3) in [0, 1] and returning the maps ``albedo``, ``roughness``,
+    ``metallicity`` and ``normal``. Without it (as phase 7's ``run`` calls
+    it) analytic priors keep the artifact set flowing: albedo = the image,
     screen-space normals from the depth prior, constant roughness/metallic
     from the config's scene defaults.
     """
@@ -69,17 +71,26 @@ def extract_intrinsics(cfg: Config) -> Optional[str]:
     os.makedirs(base, exist_ok=True)
     img = load_image_rgb(src, max_side=None)
 
-    from regen3d_tpu_torch.pipeline.depth import estimate_depth
-    depth = estimate_depth(img)
-    gy, gx = np.gradient(depth.astype(np.float32))
-    n = np.stack([-gx * 8.0, -gy * 8.0, np.ones_like(depth)], -1)
-    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
-    save_image(os.path.join(base, "albedo_map.png"), img)
-    save_image(os.path.join(base, "roughness_map.png"), np.full(
-        img.shape[:2], float(cfg.get("roughness", 0.5)), np.float32))
-    save_image(os.path.join(base, "metallic_map.png"), np.full(
-        img.shape[:2], float(cfg.get("metallic", 0.2)), np.float32))
-    save_image(os.path.join(base, "normal_map.png"), n * 0.5 + 0.5)
+    if pipeline is not None:
+        maps = pipeline(img)
+    else:
+        from regen3d_tpu_torch.pipeline.depth import estimate_depth
+        depth = estimate_depth(img)
+        gy, gx = np.gradient(depth.astype(np.float32))
+        n = np.stack([-gx * 8.0, -gy * 8.0, np.ones_like(depth)], -1)
+        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
+        maps = {
+            "albedo": img,
+            "roughness": np.full(img.shape[:2],
+                                 float(cfg.get("roughness", 0.5)), np.float32),
+            "metallicity": np.full(img.shape[:2],
+                                   float(cfg.get("metallic", 0.2)), np.float32),
+            "normal": n * 0.5 + 0.5,
+        }
+    save_image(os.path.join(base, "albedo_map.png"), maps["albedo"])
+    save_image(os.path.join(base, "roughness_map.png"), maps["roughness"])
+    save_image(os.path.join(base, "metallic_map.png"), maps["metallicity"])
+    save_image(os.path.join(base, "normal_map.png"), maps["normal"])
     log.info("phase7: intrinsics maps → %s", base)
     return base
 

@@ -488,6 +488,95 @@ def test_bake_vertex_colors_matches_jax():
                                atol=1e-6)
 
 
+def _two_cameras(hw=(48, 40)):
+    """A frontal camera and one turned about y, in both packages."""
+    out = []
+    for ang in (0.0, 0.5):
+        c, s_ = np.cos(ang), np.sin(ang)
+        kw = dict(R=np.asarray([[c, 0, -s_], [0, 1, 0], [s_, 0, c]],
+                               np.float32),
+                  T=np.asarray([0.2 * s_, 0.0, 0.1], np.float32),
+                  focal=np.asarray([50.0, 52.0], np.float32),
+                  principal=np.asarray([hw[1] / 2, hw[0] / 2 - 1], np.float32))
+        out.append((jcam.Camera(**{k: jnp.asarray(v) for k, v in kw.items()},
+                                image_size=hw),
+                    Camera(**{k: T(v) for k, v in kw.items()},
+                           image_size=hw)))
+    return out
+
+
+def test_bake_point_colors_and_texture_atlas_match_jax():
+    """``bake_point_colors`` on points off the vertices (JAX's rows padded
+    to 4096, the port's not): colours and coverage within 1e-5 over two
+    views; ``bake_texture_atlas`` at 3 texels a face: the same new vertices,
+    faces and UVs, and the decoded atlas (the port's PNG encoder against
+    Pillow's) within one level."""
+    verts, faces = _box()
+    rng = np.random.default_rng(9)
+    cams = _two_cameras()
+    imgs = [rng.uniform(size=(48, 40, 3)).astype(np.float32) for _ in cams]
+    jviews = [(cj, im) for (cj, _), im in zip(cams, imgs)]
+    tviews = [(ct, im) for (_, ct), im in zip(cams, imgs)]
+    pts = (verts[faces[:, 0]] * 0.5 + verts[faces[:, 1]] * 0.3
+           + verts[faces[:, 2]] * 0.2)
+    nrm = rng.normal(size=pts.shape).astype(np.float32)
+    cj, covj = jtexture.bake_point_colors(pts, nrm, (verts, faces), jviews)
+    ct, covt = ttexture.bake_point_colors(pts, nrm, (verts, faces), tviews)
+    np.testing.assert_allclose(ct, cj, atol=1e-5)
+    np.testing.assert_allclose(covt, covj, atol=1e-5)
+    assert (covt > 1e-6).any() and (covt <= 1e-6).any()
+    jo = jtexture.bake_texture_atlas(verts, faces, jviews, texels_per_face=3)
+    to = ttexture.bake_texture_atlas(verts, faces, tviews, texels_per_face=3)
+    for a, b in zip(to[:3], jo[:3]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    from regen3d_tpu_torch.utils.image import decode_png
+    got, mode = decode_png(to[3])
+    want = np.asarray(Image.open(__import__("io").BytesIO(jo[3])))
+    assert mode == "RGB" and got.shape == want.shape == (20, 20, 3)
+    assert np.abs(got.astype(int) - want).max() <= 1
+
+
+def test_extract_intrinsics_writes_the_pipelines_maps(tmp_path):
+    """``extract_intrinsics(cfg, pipeline=f)`` writes f's four maps: the
+    decoded pixels byte for byte the JAX package's from the same f (the
+    files' zlib streams are each encoder's own)."""
+    rng = np.random.default_rng(10)
+    maps = {"albedo": rng.uniform(size=(20, 24, 3)).astype(np.float32),
+            "roughness": rng.uniform(size=(20, 24)).astype(np.float32),
+            "metallicity": rng.uniform(size=(20, 24)).astype(np.float32),
+            "normal": rng.uniform(size=(20, 24, 3)).astype(np.float32)}
+    seen = []
+
+    def pipeline(img):
+        seen.append(img.shape)
+        return maps
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+
+    room = (rng.uniform(size=(20, 24, 3)) * 255).astype(np.uint8)
+    outs = {}
+    for pkg, mk in (("j", jconfig.default_config), ("t", default_config)):
+        cfg = mk(str(tmp_path / pkg / "output"))
+        path = Artifacts(default_config(str(tmp_path / pkg / "output"))
+                         ).empty_room
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(room).save(path)
+        mod = jphase7 if pkg == "j" else tphase7
+        base = mod.extract_intrinsics(cfg, pipeline=pipeline)
+        outs[pkg] = {n: Image.open(os.path.join(base, n))
+                     for n in sorted(os.listdir(base))}
+    assert seen == [(20, 24, 3)] * 2
+    assert sorted(outs["t"]) == ["albedo_map.png", "metallic_map.png",
+                                 "normal_map.png", "roughness_map.png"]
+    for name, im in outs["t"].items():     # the pixel bytes, not zlib's
+        assert im.mode == outs["j"][name].mode, name
+        assert im.tobytes() == outs["j"][name].tobytes(), name
+    np.testing.assert_allclose(
+        np.asarray(Image.open(os.path.join(base, "roughness_map.png")),
+                   np.float32) / 255.0, maps["roughness"], atol=1 / 255 + 1e-6)
+
+
 # --- depth prior --------------------------------------------------------------
 
 def test_depth_prior_matches_jax_and_a_model_is_refused(tmp_path,

@@ -78,6 +78,8 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.matting",
     "regen3d_tpu_torch.pipeline.detector_distill",
     "regen3d_tpu_torch.pipeline.depth_distill",
+    "regen3d_tpu_torch.models.sd_unet", "regen3d_tpu_torch.models.sd_vae",
+    "regen3d_tpu_torch.models.esrgan", "regen3d_tpu_torch.pipeline.texgen",
 ]
 # imported only inside the functions that need them: the card's machine
 # has none of them
@@ -131,14 +133,17 @@ def test_weight_bridge_uses_every_leaf_once():
 
 
 @pytest.mark.parametrize("family", ["detector", "saliency",
-                                    "depth_anything", "dust3r", "matting"])
+                                    "depth_anything", "dust3r", "matting",
+                                    "sd_unet", "sd_vae", "esrgan", "texgen"])
 def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
-    """The phase-1 models', DUSt3R's and phase 2's matting net's flax trees
-    (shapes only, no compile) map leaf for leaf onto the port's modules:
-    the detector's ``Embed.embedding`` lands on the byte embedding, the
-    transposed convolutions are named per model and get mirrored taps,
-    DUSt3R's decoders' cross-attention kernels are transposed, the matting
-    UNet's GroupNorm scales land on their weights; and the port's inverse
+    """The phase-1 models', DUSt3R's, phase 2's matting net's and phase 3's
+    texture models' flax trees (shapes only, no compile) map leaf for leaf
+    onto the port's modules: the detector's and the SD UNet's
+    ``Embed.embedding`` land on their embeddings, the transposed
+    convolutions are named per model and get mirrored taps, DUSt3R's
+    decoders' cross-attention kernels are transposed, the GroupNorm scales
+    land on their weights, the texgen model's ``cond_proj`` and UNet sit
+    where the JAX tree has them; and the port's inverse
     (``tree_from_model``) gives the tree back leaf for leaf."""
     from regen3d_tpu.models import dust3r as jd3
     from regen3d_tpu.models import depth_anything as jda
@@ -189,6 +194,49 @@ def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
         model, ct = tunet.MattingUNet(base=8, device="cpu"), frozenset()
         leaf, where = ("trunk", "up2_0", "norm1", "scale"), \
             "trunk.up2_0.norm1.weight"
+    elif family == "sd_unet":
+        from regen3d_tpu.models import sd_unet as jsd
+        from regen3d_tpu_torch.models import sd_unet as tsd
+        shapes = jax.eval_shape(
+            jsd.SDUNet(jsd.SDUNetConfig.tiny(class_embeddings=4)).init, key,
+            jnp.zeros((1, 16, 16, 7)), jnp.zeros((1,)),
+            jnp.zeros((1, 5, 16)), jnp.zeros((1,), jnp.int32))
+        model, ct = tsd.SDUNet(tsd.SDUNetConfig.tiny(class_embeddings=4),
+                               device="cpu"), frozenset()
+        leaf, where = ("class_embedding", "embedding"), \
+            "class_embedding.weight"
+    elif family == "sd_vae":
+        from regen3d_tpu.models import sd_vae as jsv
+        from regen3d_tpu_torch.models import sd_vae as tsv
+        shapes = jax.eval_shape(jsv.SDAutoencoderKL(jsv.SDVAEConfig()).init,
+                                key, jnp.zeros((1, 64, 64, 3)))
+        model, ct = tsv.SDAutoencoderKL(tsv.SDVAEConfig(), device="cpu"), \
+            frozenset()
+        leaf, where = ("decoder", "mid_attn", "to_k", "kernel"), \
+            "decoder.mid_attn.to_k.weight"
+    elif family == "esrgan":
+        from regen3d_tpu.models import esrgan as jes
+        from regen3d_tpu_torch.models import esrgan as tes
+        shapes = jax.eval_shape(jes.RRDBNet(jes.ESRGANConfig.tiny()).init,
+                                key, jnp.zeros((1, 8, 8, 3)))
+        model, ct = tes.RRDBNet(tes.ESRGANConfig.tiny(), device="cpu"), \
+            frozenset()
+        leaf, where = ("body_1", "rdb3", "conv5", "bias"), \
+            "body_1.rdb3.conv5.bias"
+    elif family == "texgen":
+        from regen3d_tpu.models.sd_unet import SDUNetConfig as JU
+        from regen3d_tpu.pipeline import texgen as jtg
+        from regen3d_tpu_torch.models.sd_unet import SDUNetConfig as TU
+        from regen3d_tpu_torch.pipeline import texgen as ttg
+        shapes = jax.eval_shape(
+            jtg.MultiviewTexGen(JU.tiny(12, class_embeddings=6)).init, key,
+            jnp.zeros((6, 8, 8, 4)), jnp.zeros(()), jnp.zeros((8, 8, 4)),
+            jnp.arange(6), jnp.zeros((6, 8, 8, 4)), jnp.zeros((6, 13)))
+        model, ct = ttg.MultiviewTexGen(TU.tiny(12, class_embeddings=6),
+                                        device="cpu"), frozenset()
+        leaf, where = ("unet", "up_1_attn_0", "transformer_blocks_0",
+                       "attn2", "to_k", "kernel"), \
+            "unet.up_1_attn_0.transformer_blocks_0.attn2.to_k.weight"
     else:
         shapes = jax.eval_shape(
             jda.DepthAnything(jda.DepthAnythingConfig.tiny()).init, key,

@@ -20,8 +20,9 @@
   JAX side on its plain attention) on the same prepped images at 3 steps
   and 24³: a non-placeholder GLB per object under the same names (the
   noise differs between the packages, so only the contract is compared);
-  the texture branches raise; the random-init generator when no
-  checkpoint loads.
+  the texture branches (``bake_texture_atlas``, ``use_multiview_texgen``
+  and its PBR ring) on one sphere mesh in both packages; the random-init
+  generator when no checkpoint loads.
 """
 
 import dataclasses
@@ -388,14 +389,126 @@ def test_phase3_cli_writes_the_contract_like_jax(tmp_path, ckpt,
     _assert_assets(t_art, names)
 
 
+def _sphere_volumes(n, res):
+    """n copies of a sphere's SDF (radius 0.5) on the decode grid."""
+    g = np.linspace(-1.01, 1.01, res, dtype=np.float32)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    return np.repeat((np.sqrt(x * x + y * y + z * z) - 0.5)[None], n, 0)
+
+
+def _fixed_volumes(monkeypatch):
+    """Both packages' generators give the sphere (the two samplers' noise
+    differs, so their meshes would too): the same mesh goes into both
+    texture paths."""
+    def jax_batch(self, key, images, num_steps, guidance, res, chunk,
+                  **kw):
+        return _sphere_volumes(len(images), res)
+
+    def port_batch(self, generator, images, num_steps, guidance, res,
+                   chunk, **kw):
+        return _sphere_volumes(images.shape[0], res)
+
+    monkeypatch.setattr(jp3.AssetGenerator, "generate_sdf_batch", jax_batch)
+    monkeypatch.setattr(tp3.AssetGenerator, "generate_sdf_batch", port_batch)
+
+
+def _texgen_weights(monkeypatch, cfg):
+    """The JAX CLI's ``init_texgen`` given the port CLI's weights (the port's
+    tiny texgen model and VAE from seed 0, as its phase 3 draws them): the
+    two packages draw random inits from different generators, and the JAX
+    package's eager init of the tiny UNet takes about a minute."""
+    from regen3d_tpu.pipeline import texgen as jtg
+    from regen3d_tpu_torch.models.from_jax import tree_from_model
+    from regen3d_tpu_torch.models.sd_unet import SDUNetConfig
+    from regen3d_tpu_torch.models.sd_vae import SDVAEConfig
+    from regen3d_tpu_torch.pipeline import texgen as ttg
+
+    n = int(cfg["max_num_view"])
+    model, vae = ttg.init_texgen(
+        ttg.TexGenConfig(num_views=n), torch.Generator().manual_seed(0),
+        SDUNetConfig.tiny(in_channels=12, class_embeddings=n),
+        SDVAEConfig.tiny(), device="cpu")
+    trees = (tree_from_model(model), tree_from_model(vae))
+    monkeypatch.setattr(jtg, "init_texgen", lambda tcfg, key=None,
+                        unet_cfg=None, vae_cfg=None: (*trees, unet_cfg,
+                                                      vae_cfg))
+    from regen3d_tpu.models import sd_unet as jsu
+    from regen3d_tpu.models import sd_vae as jsva
+    for mod in (jsu, jsva):
+        monkeypatch.setattr(mod, "flash_attention",
+                            lambda q, k, v: ja.attention_reference(q, k, v))
+
+
 @pytest.mark.parametrize("knob", ["use_multiview_texgen",
                                   "bake_texture_atlas"])
-def test_texture_branches_raise(tmp_path, ckpt, knob):
-    cfg, art, _ = _prepped_root(tmp_path, ckpt["imgs"])
-    c = default_config(str(tmp_path / "output"), **{knob: True})
-    with pytest.raises(NotImplementedError, match="texture models"):
-        tp3.run(c, device="cpu")
-    assert art.list_assets() == []
+def test_texture_branches_write_a_textured_glb(tmp_path, ckpt, knob,
+                                               monkeypatch):
+    """Each switch writes a textured GLB per object through both packages'
+    ``run`` on the same sphere mesh: per-corner UVs, a baseColor PNG and no
+    vertex colours. ``bake_texture_atlas`` gives the JAX package's mesh,
+    UVs and atlas: decoded pixels within one level on all but the texels
+    whose visibility flips at a face edge (Queue 3 ag), which take the
+    unseen texels' mean colour in one package (5 of 55,696 texels, 96
+    levels off; 273 more differ by one level); ``use_multiview_texgen``
+    its GLB contract (the same faces, UVs and texture size; the noise
+    differs)."""
+    from regen3d_tpu_torch.utils.image import decode_png
+
+    _fixed_volumes(monkeypatch)
+    over = {knob: True, "texels_per_face": 2, "texgen_resolution": 16,
+            "texgen_steps": 1, "max_num_view": 2}
+    meshes = {}
+    for pkg in ("j", "t"):
+        _, art, names = _prepped_root(tmp_path / pkg, ckpt["imgs"][:1])
+        if pkg == "j":
+            cfg = jconfig.default_config(str(tmp_path / pkg / "output"),
+                                         octree_resolution_hy=24, **over)
+            if knob == "use_multiview_texgen":
+                _texgen_weights(monkeypatch, cfg)
+            done = jp3.run(cfg)
+        else:
+            done = tp3.run(default_config(str(tmp_path / pkg / "output"),
+                                          octree_resolution_hy=24, **over),
+                           device="cpu")
+        assert done == names[:1]
+        meshes[pkg] = load_glb(art.asset_glb(names[0])).meshes[0]
+    t, j = meshes["t"], meshes["j"]
+    assert t.vertex_colors is None and t.texture_png and t.uvs is not None
+    assert len(t.faces) > 100 and len(t.vertices) == 3 * len(t.faces)
+    np.testing.assert_array_equal(t.faces, j.faces)
+    np.testing.assert_allclose(t.vertices, j.vertices, atol=1e-6)
+    np.testing.assert_array_equal(t.uvs, j.uvs)
+    got, want = decode_png(t.texture_png)[0], decode_png(j.texture_png)[0]
+    assert got.shape == want.shape
+    if knob == "bake_texture_atlas":
+        d = np.abs(got.astype(int) - want)
+        d = d.max(-1)
+        assert (d > 0).mean() <= 0.01 and (d > 1).mean() <= 2e-4
+
+
+def test_texgen_pbr_cli_writes_albedo_and_mr_atlases(tmp_path, ckpt,
+                                                     monkeypatch):
+    """``use_multiview_texgen`` under ``use_hunyuan21`` (and
+    ``enable_texture_hy21``, its default): the PBR ring, an albedo and a
+    metallic-roughness atlas of one size on one layout, metallic and
+    roughness factors 1; a ``realesrgan_ckpt_path`` that does not exist
+    leaves the albedo at the atlas's size, as in the JAX package."""
+    from regen3d_tpu_torch.utils.image import decode_png
+
+    _fixed_volumes(monkeypatch)
+    _, art, names = _prepped_root(tmp_path, ckpt["imgs"][:1])
+    cfg = default_config(str(tmp_path / "output"), octree_resolution_hy21=24,
+                         use_multiview_texgen=True, use_hunyuan21=True,
+                         texels_per_face=2, texgen_resolution=16,
+                         texgen_steps=1, max_num_view_hy21=2,
+                         realesrgan_ckpt_path=str(tmp_path / "none.pth"))
+    assert tp3.run(cfg, device="cpu") == names[:1]
+    mesh = load_glb(art.asset_glb(names[0])).meshes[0]
+    assert mesh.texture_png and mesh.mr_texture_png
+    assert mesh.metallic == 1.0 and mesh.roughness == 1.0
+    albedo, mr = decode_png(mesh.texture_png)[0], \
+        decode_png(mesh.mr_texture_png)[0]
+    assert albedo.shape == mr.shape and len(mesh.uvs) == len(mesh.vertices)
 
 
 def test_random_init_when_no_checkpoint_loads(tmp_path, ckpt, caplog):
