@@ -278,7 +278,9 @@ MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "sam_grad_launches", "checkpoint_launches", "matting_launches",
               "texture_rgb_launches", "texture_pbr_launches",
               "texture_cli_texgen_launches", "texture_cli_texgen_pbr_launches",
-              "texture_cli_atlas_launches")
+              "texture_cli_atlas_launches", "flux_launches",
+              "x4_upscale_launches", "flux_upscale_launches",
+              "cli_upscale_launches", "editor_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -6358,6 +6360,586 @@ def phase_checkpoints(results, sam):
     log(f"phase_checkpoints: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 1's two last switches: the upscalers and the mask editor
+# ---------------------------------------------------------------------------
+
+# FLUX.1-dev's transformer on a 1024² image's latent: 4,096 image tokens of
+# 64 (16-channel latents packed 2×2) and 512 T5 tokens of 4,096; the
+# config's num_inference_steps through dit.sample at guidance 1.0
+FLUX_TOKENS, FLUX_TEXT, FLUX_STEPS = 4096, 512, 50
+# the SD-x4 upscaler on a 256² crop (→ 1024², a 128² latent) and the FLUX
+# upscaler's recipe on a 128² crop (→ 512², 1,024 tokens of 16)
+X4_CROP, FLUX_UP_CROP = 256, 128
+# flash launches: 57 a FLUX forward (one joint attention a block); 11 an
+# x4 UNet forward (4 down, 1 mid, 6 up) and 1 the VAE decode; 32 a fused
+# guided DiT step (16 blocks, self and cross) and 2 the SD VAE (encode,
+# decode); 7 a SAM decode (the two-way transformer's 2 × 3 and the final
+# token → image), 4 grid-bias an encode (SAM-H's global blocks)
+FLUX_LAUNCHES, X4_UNET_LAUNCHES, SAM_DECODE_LAUNCHES = 57, 11, 7
+# the card (bf16, kernels) against the CPU's f32 plain versions, of max
+# |f32|, within phase 3's bf16 limits (ROADMAP Queue 3 af)
+UE_MAX_ERR, UE_MEAN_ERR = 5e-2, 1.5e-2
+# the tiny x4 pair's uint8 upscale (4 guided steps from one noise) on the
+# card against the CPU's f32, in levels (max, mean): an H100 read (1, 0.12)
+X4_TINY_LEVELS = (8, 1.0)
+
+
+class _WithPooled:
+    """A FluxTransformer that dit.sample drives with a pooled vector: the
+    sampler calls model(x, t, cond) and reads model.cfg."""
+
+    def __init__(self, model, pooled):
+        self.model, self.pooled, self.cfg = model, pooled, model.cfg
+
+    def __call__(self, x, t, cond):
+        return self.model(x, t, cond, pooled=self.pooled)
+
+
+def _card_and_cpu(cls, cfg, init, seed):
+    """(the module on the card in cfg's dtype, the same weights in f32 on
+    the CPU), initialised on the CPU from ``seed``."""
+    import dataclasses
+
+    import torch
+
+    cpu = cls(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    init(cpu, torch.Generator().manual_seed(seed))
+    card = cls(cfg)
+    card.load_state_dict(cpu.state_dict())
+    return card.eval(), cpu.eval()
+
+
+def upscale_small_checks():
+    """The tiny FLUX, the tiny x4 upscaler pair and a small SAM's editing
+    session on the card (bf16, kernels) against the same weights on the
+    CPU (f32, plain versions). Returns the errors."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.models import flux as fl
+    from regen3d_tpu_torch.models import unet as un
+    from regen3d_tpu_torch.models import vae as va
+    from regen3d_tpu_torch.models.sam import SAM, SamConfig, init_flax_style_
+    from regen3d_tpu_torch.pipeline import interactive
+    from regen3d_tpu_torch.pipeline.upscale import Upscaler
+
+    out = {}
+    card, cpu = _card_and_cpu(fl.FluxTransformer, fl.FluxConfig.tiny(),
+                              fl.init_flax_style_, 31)
+    g = torch.Generator().manual_seed(32)
+    x, cond = torch.randn((2, 16, 8), generator=g), torch.randn(
+        (2, 8, 32), generator=g)
+    t, pooled = torch.rand(2, generator=g), torch.randn((2, 16), generator=g)
+    with torch.no_grad():
+        out["flux tiny"] = _rel_errors(
+            card(x.cuda(), t.cuda(), cond.cuda(), pooled=pooled.cuda()),
+            cpu(x, t, cond, pooled=pooled))
+
+    unet, unet_c = _card_and_cpu(un.UNet, un.UNetConfig.tiny(),
+                                 un.init_flax_style_, 33)
+    un.draw_zero_init_leaves_(unet_c, torch.Generator().manual_seed(34))
+    unet.load_state_dict(unet_c.state_dict())
+    vae, vae_c = _card_and_cpu(va.AutoencoderKL, va.VAEConfig.tiny(),
+                               un.init_flax_style_, 35)
+    un.draw_zero_init_leaves_(vae_c, torch.Generator().manual_seed(36))
+    vae.load_state_dict(vae_c.state_dict())
+    rng = np.random.default_rng(37)
+    crop = rng.integers(0, 256, (32, 32, 3), np.uint8)
+    noise = torch.randn((1, 16, 16, 4), generator=g)
+    cfg = {"num_inference_steps": 4, "guidance_scale": 5.0}
+    a = Upscaler(unet, vae).upscale(crop, cfg, noise=noise)
+    b = Upscaler(unet_c, vae_c).upscale(crop, cfg, noise=noise)
+    d = np.abs(a.astype(int) - b.astype(int))
+    out["x4 tiny levels"] = (int(d.max()), float(d.mean()))
+
+    small = SamConfig(image_size=512, width=160, depth=2, num_heads=2,
+                      window=14, global_blocks=(1,), prompt_dim=256)
+    sam, sam_c = _card_and_cpu(SAM, small, init_flax_style_, 38)
+    img = rng.integers(0, 256, (240, 320, 3), np.uint8)
+    verbs = [lambda s: s.new_from_box("box", 40, 30, 200, 170),
+             lambda s: s.add_point(0, 120, 90, True),
+             lambda s: s.add_point(0, 60, 160, False)]
+    runs = {}
+    resize = interactive.resize_bilinear
+    try:
+        for name, model in (("card", sam), ("cpu", sam_c)):
+            logits, masks = [], []
+
+            def recorded(t, hw):
+                r = resize(t, hw)
+                logits.append(r[0, ..., 0].float().cpu())
+                return r
+
+            interactive.resize_bilinear = recorded
+            session = interactive.EditSession(img, sam=model)
+            for verb in verbs:
+                verb(session)
+                masks.append(session.masks[0].mask)
+            runs[name] = (masks, logits[1:])     # [0]: the encode's input
+    finally:
+        interactive.resize_bilinear = resize
+    worst, share = 0.0, 0.0
+    for m_card, m_cpu, lg in zip(runs["card"][0], runs["cpu"][0],
+                                 runs["card"][1]):
+        off = m_card != m_cpu
+        share = max(share, float(off.mean()))
+        if off.any():
+            worst = max(worst, float(lg[torch.from_numpy(off)].abs().max())
+                        / float(lg.abs().max()))
+    out["sam session"] = (worst, share)
+    return out
+
+
+def _meta_flux_keys():
+    """FLUX.1-dev's upstream key set on the ``meta`` device: the rule table
+    of the ``flux`` family maps every key of the layout the inverse builds
+    from FluxTransformer(FluxConfig()), to the module's shapes, with no
+    tensor allocated (meta parameters, zero-stride upstream arrays).
+    Returns (keys, double blocks, single blocks, failures)."""
+    import numpy as np
+
+    from regen3d_tpu_torch.models import conversion
+    from regen3d_tpu_torch.models.flux import FluxConfig, FluxTransformer
+    from regen3d_tpu_torch.models.from_jax import tree_from_model
+    from regen3d_tpu_torch.models.weights import (
+        convert_state_dict,
+        flatten_tree,
+        verify_tree_shapes,
+    )
+
+    fam = conversion.FAMILIES["flux"]
+    tree = tree_from_model(FluxTransformer(FluxConfig(), device="meta"))
+    state = {}
+    for path, leaf in flatten_tree(tree).items():
+        key, _ = fam.invert(path[1:], np.zeros((1,) * leaf.ndim, np.float32))
+        # a zero-stride view of the upstream shape: nothing allocated
+        state[key] = np.broadcast_to(np.float32(0), tuple(leaf.shape)[::-1])
+    unmapped = []
+    conv = convert_state_dict(state, fam.rules(), strict=True,
+                              unmapped_out=unmapped)
+    bad = verify_tree_shapes(conv, tree) + unmapped
+    blocks = lambda p: len({k.split(".")[1] for k in state
+                            if k.startswith(p + ".")})
+    return (len(state), blocks("transformer_blocks"),
+            blocks("single_transformer_blocks"), bad)
+
+
+def flux_full(results, gen):
+    """FluxTransformer(FluxConfig()) from a seed (flax's f32 parameters,
+    bf16 compute) through dit.sample at guidance 1.0 over FLUX_STEPS on a
+    1024² image's latent; returns the flash shapes it gave."""
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models import dit
+    from regen3d_tpu_torch.models.flux import (
+        FluxConfig,
+        FluxTransformer,
+        init_flax_style_,
+    )
+
+    t0 = time.perf_counter()
+    n_keys, n_double, n_single, bad = _meta_flux_keys()
+    log(f"flux upstream layout on meta ({time.perf_counter() - t0:.1f} s): "
+        f"{n_keys} keys, {n_double} double and {n_single} single blocks, "
+        f"failures {bad[:5]}")
+    if bad or (n_double, n_single) != (19, 38):
+        raise AssertionError("flux: the upstream key set and the rule table "
+                             "disagree")
+
+    cfg = FluxConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FluxTransformer(cfg).eval()
+    init_flax_style_(model, gen)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"FLUX.1-dev transformer (FluxConfig(): {cfg.double_depth} double, "
+        f"{cfg.single_depth} single blocks, width {cfg.width}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim}): {n_par / 1e9:.3f} B "
+        f"params in f32 ({4 * n_par / 1e9:.1f} GB), built and initialised "
+        f"in {time.perf_counter() - t0:.1f} s")
+    lat = torch.randn((1, FLUX_TOKENS, cfg.in_channels), generator=gen,
+                      device="cuda")
+    cond = torch.randn((1, FLUX_TEXT, cfg.cond_dim), generator=gen,
+                       device="cuda")
+    pooled = torch.randn((1, cfg.pooled_dim), generator=gen, device="cuda")
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_flash_shapes() as shapes:
+        out = dit.sample(_WithPooled(model, pooled), cond,
+                         num_steps=FLUX_STEPS, guidance_scale=1.0,
+                         latents=lat)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tt = torch.full((1,), 0.5, device="cuda")
+    with torch.no_grad():
+        dev_ms, top, n_kern, ops = device_top(
+            lambda: model(lat, tt, cond, pooled=pooled), 8)
+    log(f"flux_{FLUX_STEPS}step (dit.sample, guidance 1.0, {FLUX_TOKENS} "
+        f"image + {FLUX_TEXT} text tokens): {dt:.2f} s, "
+        f"{dt / FLUX_STEPS:.4f} s a step; one step {dev_ms:.2f} ms of device "
+        f"time in {n_kern} launches, top kernels "
+        f"{[(round(m, 2), n, c) for m, n, c in top]}, top operators "
+        f"{[(round(m, 2), n, c) for m, n, c in ops]}; peak {peak:.2f} GiB; "
+        f"launches {counts}")
+    gates = []
+    if out.shape != lat.shape or not bool(torch.isfinite(out).all()):
+        gates.append(f"output {tuple(out.shape)} not finite")
+    if counts["flash_fwd"] != FLUX_LAUNCHES * FLUX_STEPS:
+        gates.append(f"{counts['flash_fwd']} flash launches")
+    if gates:
+        raise AssertionError(f"flux_{FLUX_STEPS}step: {gates}")
+    results["flux_launches"] = counts
+    results["flux"] = dict(s=dt, s_per_step=dt / FLUX_STEPS,
+                           step_device_ms=dev_ms, peak_gib=peak,
+                           params=n_par)
+    return shapes
+
+
+def x4_full(results, gen, crop):
+    """Upscaler(UNet(UNetConfig()), AutoencoderKL(VAEConfig())) from a seed
+    on a crop, at the config's 50 steps and guidance 5.0; returns the flash
+    shapes."""
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models import unet as un
+    from regen3d_tpu_torch.models import vae as va
+    from regen3d_tpu_torch.pipeline import upscale
+
+    unet = un.UNet(un.UNetConfig()).eval()
+    un.init_flax_style_(unet, gen)
+    un.draw_zero_init_leaves_(unet, gen)
+    vae = va.AutoencoderKL(va.VAEConfig()).eval()
+    un.init_flax_style_(vae, gen)
+    un.draw_zero_init_leaves_(vae, gen)
+    n_par = lambda m: sum(p.numel() for p in m.parameters()) / 1e6
+    spies = {"DDIM": _CallSpy(un.ddim_sample)}
+    decode = vae.decode
+    spies["decode"] = _CallSpy(decode)
+    vae.decode = spies["decode"]
+    saved = un.ddim_sample
+    un.ddim_sample = spies["DDIM"]
+    cfg = {"num_inference_steps": 50, "guidance_scale": 5.0, "seed": 41}
+    try:
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_flash_shapes() as shapes:
+            out = upscale.Upscaler(unet, vae).upscale(crop, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        un.ddim_sample, vae.decode = saved, decode
+    counts = dict(kernels.LAUNCHES)
+    stages = {k: round(s.calls[0]["s"], 3) for k, s in spies.items()}
+    peak = max(s.calls[0]["peak"] for s in spies.values()) / 2 ** 30
+    expected = 2 * 50 * X4_UNET_LAUNCHES + 1
+    h, w = crop.shape[:2]
+    # one UNet forward at the DDIM's shapes: its wall and device time
+    z = torch.randn((1, h // 2, w // 2, 4), generator=gen, device="cuda")
+    c = torch.randn((1, h // 2, w // 2, 3), generator=gen, device="cuda")
+    tt = torch.full((1,), 500.0, device="cuda")
+    with torch.no_grad():
+        fwd_s = _CallSpy(unet)
+        for _ in range(3):
+            fwd_s(z, tt, c)
+        dev_ms, top, n_kern, ops = device_top(lambda: unet(z, tt, c), 6)
+    fwd_ms = 1e3 * sorted(x["s"] for x in fwd_s.calls)[1]
+    log(f"SD-x4 upscaler (UNetConfig() {n_par(unet):.1f} M, VAEConfig() "
+        f"{n_par(vae):.1f} M params, random weights from a seed) on a "
+        f"{h}x{w} crop, 50 steps, guidance 5: {dt:.2f} s; by stage (s) "
+        f"{stages}; peak {peak:.2f} GiB; output {out.shape} {out.dtype}; "
+        f"launches {counts} (expected {expected}); one UNet forward "
+        f"{fwd_ms:.2f} ms wall, {dev_ms:.2f} ms of device time in {n_kern} "
+        f"launches, top kernels {[(round(m, 2), n, k) for m, n, k in top]}, "
+        f"top operators {[(round(m, 2), n, k) for m, n, k in ops]}")
+    gates = []
+    if out.shape != (4 * h, 4 * w, 3) or out.dtype.name != "uint8" \
+            or out.std() == 0:
+        gates.append(f"output {out.shape} {out.dtype}")
+    if counts["flash_fwd"] != expected:
+        gates.append(f"{counts['flash_fwd']} flash launches")
+    if gates:
+        raise AssertionError(f"SD-x4 upscaler: {gates}")
+    results["x4_upscale_launches"] = counts
+    results["x4_upscale"] = dict(s=dt, stages=stages, peak_gib=peak,
+                                 unet_fwd_ms=fwd_ms, unet_fwd_device_ms=dev_ms)
+    return shapes
+
+
+def flux_upscaler_full(results, gen, crop):
+    """FluxUpscaler with a ShapeDiT at DiTConfig()'s widths sized to the
+    crop's tokens and SDAutoencoderKL(SDVAEConfig()), at the config's 50
+    steps and guidance 5.0; returns the flash shapes."""
+    import dataclasses
+
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models import dit, sd_unet, sd_vae
+    from regen3d_tpu_torch.pipeline import upscale
+
+    side = crop.shape[0] * 4 // 8 // 2
+    dcfg = dataclasses.replace(dit.DiTConfig(), latent_tokens=side * side,
+                               latent_dim=16, cond_dim=16)
+    model = dit.ShapeDiT(dcfg).eval()
+    dit.init_flax_style_(model, gen)
+    dit.draw_zero_init_leaves_(model, gen)
+    vae = sd_vae.SDAutoencoderKL(sd_vae.SDVAEConfig()).eval()
+    sd_unet.init_flax_style_(vae, gen)
+    cfg = {"num_inference_steps": 50, "guidance_scale": 5.0, "seed": 42}
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_flash_shapes() as shapes:
+        out = upscale.FluxUpscaler(model, vae).upscale(crop, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    expected = 50 * 2 * dcfg.depth + 2
+    log(f"FluxUpscaler (ShapeDiT at DiTConfig()'s widths, {side * side} "
+        f"tokens of 16; SDVAEConfig()) on a {crop.shape[0]}² crop, 50 steps, "
+        f"guidance 5: {dt:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; output "
+        f"{out.shape}; launches {counts} (expected {expected})")
+    if out.shape != (4 * crop.shape[0], 4 * crop.shape[1], 3) \
+            or counts["flash_fwd"] != expected:
+        raise AssertionError("FluxUpscaler: output or launches")
+    results["flux_upscale_launches"] = counts
+    results["flux_upscale"] = dict(s=dt)
+    return shapes
+
+
+def cli_upscale(results, root):
+    """run_phases(cfg, [1]) with use_banana: false on the bus's input
+    (weightless: k-means, the findings, the depth prior, LANCZOS ×4 then
+    512²). Returns the stems."""
+    import shutil
+
+    from regen3d_tpu_torch import kernels, orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.utils.image import read_png
+
+    shutil.copy(ROOT / "build" / "bus" / "bus" / "input.png",
+                root / "input.png")
+    cfg = default_config(str(root / "output"),
+                         input_image=str(root / "input.png"),
+                         use_banana=False)
+    kernels.reset_counts()
+    timings = orchestrator.run_phases(cfg, [1], device="cuda")
+    results["cli_upscale_launches"] = dict(kernels.LAUNCHES)
+    art = Artifacts(cfg)
+    stems = art.list_findings()
+    up = root / "output" / "findings" / "upscaled" / "cropped"
+    shapes = {p.stem: read_png(str(p))[0].shape for p in up.glob("*.png")}
+    bad = phase1_finding_gates(cfg, stems)
+    if sorted(shapes) != sorted(stems) or len(stems) < 4 or any(
+            s != (512, 512, 3) for s in shapes.values()):
+        bad.append(f"upscaled {shapes} for findings {stems}")
+    log(f"-p 1 with use_banana: false through run_phases on the bus's input "
+        f"(weightless): {timings[1]:.3f} s, {len(stems)} findings, "
+        f"{len(shapes)} 512² upscales")
+    if bad:
+        raise AssertionError("-p 1 use_banana false: " + "; ".join(bad))
+    results["cli_upscale_sec"] = timings[1]
+    return cfg, stems
+
+
+EDITOR_VERBS = [
+    {"op": "new_from_box", "label": "rug", "x0": 300, "y0": 700,
+     "x1": 900, "y1": 940},
+    {"op": "add_point", "idx": -1, "x": 600, "y": 820, "positive": True},
+    {"op": "add_point", "idx": -1, "x": 320, "y": 720, "positive": False},
+    {"op": "merge", "i": 0, "j": -1},
+    {"op": "resolve_overlaps"},
+    {"op": "relabel", "idx": 0, "label": "sofa"},
+]
+
+
+def editor_full(results, sam, root):
+    """phase1_segmentation.run with SAM-H and interactive_edit on a free
+    editor_port: a client thread drives EDITOR_VERBS and Finish over HTTP,
+    checking every reply; gated on the exported findings, two encodes (the
+    detection's and the session's one) and the launches. Returns the
+    flash shapes."""
+    import json
+    import shutil
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.pipeline import phase1_segmentation
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    shutil.copy(ROOT / "build" / "bus" / "bus" / "input.png",
+                root / "input.png")
+    cfg = default_config(str(root / "output"),
+                         input_image=str(root / "input.png"),
+                         interactive_edit=True, editor_port=port)
+    replies, n_masks = [], []
+
+    def post(body):
+        rq = urllib.request.Request(
+            f"http://127.0.0.1:{port}/op", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(rq, timeout=300) as r:
+                code, reply = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, reply = e.code, e.read()
+        replies.append((body["op"], code, json.loads(reply),
+                        round(time.perf_counter() - t, 4)))
+
+    def client():
+        t_end = time.monotonic() + 300
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/state", timeout=10) as r:
+                    n_masks.append(len(json.loads(r.read())["masks"]))
+                break
+            except OSError:
+                if time.monotonic() > t_end:
+                    return
+                time.sleep(0.1)
+        for verb in EDITOR_VERBS:
+            # -1: the mask the box made
+            post({k: n_masks[0] if v == -1 else v for k, v in verb.items()})
+        post({"op": "finish"})
+
+    encodes = []
+    encode = sam.encode
+    sam.encode = lambda img: encodes.append(1) or encode(img)
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with recording_flash_shapes() as shapes:
+            stems = phase1_segmentation.run(cfg, sam=sam)
+    finally:
+        sam.encode = encode
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    thread.join(timeout=60)
+    counts = dict(kernels.LAUNCHES)
+    decoding = sum(v["op"] in ("new_from_box", "add_point")
+                   for v in EDITOR_VERBS)
+    expected = SAM_DECODE_LAUNCHES * (1 + decoding)
+    log(f"phase 1 run with SAM-H and interactive_edit on the bus's input: "
+        f"{dt:.2f} s; {n_masks} masks at the start; replies (verb, status, "
+        f"reply, s) {replies}; findings {stems}; {len(encodes)} encodes; "
+        f"launches {counts} (flash expected {expected}: one decode pass of "
+        f"the detections and {decoding} in the session; grid-bias 4 an "
+        f"encode)")
+    bad = [r for r in replies[:-1] if r[1:3] != (200, {"ok": True})]
+    if not replies or replies[-1][1:3] != (200, {"done": True}) \
+            or len(replies) != len(EDITOR_VERBS) + 1:
+        bad.append("no finish")
+    bad += phase1_finding_gates(cfg, stems)
+    if not any(st.startswith("sofa") for st in stems) or len(encodes) != 2:
+        bad.append(f"findings {stems}, {len(encodes)} encodes")
+    if counts["flash_fwd"] != expected or counts["flash_gb_fwd"] != 8:
+        bad.append(f"launches {counts}")
+    if bad:
+        raise AssertionError(f"phase 1 editor: {bad}")
+    results["editor_launches"] = counts
+    results["editor"] = dict(s=dt, replies=replies)
+    return shapes
+
+
+def phase_upscale_edit(results, sam):
+    """Phase 1's two last switches on the card: the small checks
+    (upscale_small_checks), FLUX.1-dev's transformer at FluxConfig()
+    through dit.sample (flux_full), the SD-x4 upscaler at UNetConfig() and
+    VAEConfig() (x4_full) and the FLUX upscaler's recipe (flux_upscaler_
+    full) on crops of a bus finding, -p 1 with use_banana: false
+    (cli_upscale), and phase 1's run with SAM-H behind the HTTP editor
+    (editor_full); then every flash shape of those runs not held before
+    against the plain version, the full-width ones timed beside SDPA."""
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.pipeline.upscale import square_pad
+    from regen3d_tpu_torch.utils.image import read_png, resize_pil
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    checks = upscale_small_checks()
+    log(f"upscalers and editor, card vs CPU f32 ({time.perf_counter() - t0:.1f}"
+        f" s): tiny FLUX (max, mean) / max |f32| {checks['flux tiny']} (tol "
+        f"{UE_MAX_ERR}/{UE_MEAN_ERR}); tiny x4 pair, uint8 levels (max, "
+        f"mean) {checks['x4 tiny levels']} (tol {X4_TINY_LEVELS}); small "
+        f"SAM session, the differing pixels' largest |logit| / max |logit| and their share "
+        f"{checks['sam session']} (tol {UE_MAX_ERR}, 1%)")
+    a, m = checks["flux tiny"]
+    if a > UE_MAX_ERR or m > UE_MEAN_ERR \
+            or checks["x4 tiny levels"][0] > X4_TINY_LEVELS[0] \
+            or checks["x4 tiny levels"][1] > X4_TINY_LEVELS[1] \
+            or checks["sam session"][0] > UE_MAX_ERR \
+            or checks["sam session"][1] > 0.01:
+        raise AssertionError(f"upscalers and editor on the card: {checks}")
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    shapes = collections.Counter()
+    shapes.update(flux_full(results, gen))
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "upscale"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "cli").mkdir(parents=True)
+    cfg, stems = cli_upscale(results, root / "cli")
+    art = Artifacts(cfg)
+    finding = square_pad(read_png(f"{art.findings_cropped}/{stems[0]}.png")[0])
+    crops = {n: resize_pil(finding, (n, n), "lanczos")
+             for n in (X4_CROP, FLUX_UP_CROP)}
+    shapes.update(x4_full(results, gen, crops[X4_CROP]))
+    torch.cuda.empty_cache()
+    shapes.update(flux_upscaler_full(results, gen, crops[FLUX_UP_CROP]))
+    torch.cuda.empty_cache()
+    (root / "editor").mkdir()
+    shapes.update(editor_full(results, sam, root / "editor"))
+    results["upscale_edit_checks"] = checks
+
+    gen_t = torch.Generator(device="cuda").manual_seed(43)
+    held = []
+    for shape in sorted(set(shapes).difference(FLASH_SHAPES + D512_SHAPES)):
+        r = fwd_case(shape, gen_t, timed=shape[2] >= 256)
+        held.append(dict(shape=shape, launches=shapes[shape], err=r["err"],
+                         err_lse=r["err_lse"], sdpa_err=r["sdpa_err"],
+                         bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                         **r.get("ms", {})))
+        torch.cuda.empty_cache()
+    f = results["flash_fwd"]
+    for r in held:
+        f["max_abs_err"] = max(f["max_abs_err"], r["err"])
+        f["max_abs_err_lse"] = max(f["max_abs_err_lse"], r["err_lse"])
+    f["upscale_edit_shapes"] = held
+    log(f"flash_fwd at the upscalers' and editor's shapes (launches "
+        f"{dict(sorted(shapes.items()))}), held against the plain version "
+        f"after the runs: {held}")
+    log(f"phase_upscale_edit: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6394,6 +6976,7 @@ def main() -> int:
     sam = timed(phase_sam, results)
     timed(phase_segment, results, sam)
     timed(phase_checkpoints, results, sam)
+    timed(phase_upscale_edit, results, sam)
     del sam
     timed(phase_alternates, results)
     timed(phase_dit, results)

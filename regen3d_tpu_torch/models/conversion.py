@@ -29,8 +29,6 @@ STATUS per family (how literally the upstream key layout is transcribed):
   diverged     — the architecture differs from the upstream model on
                  purpose (see the model's docstring), so no key mapping can
                  exist; ``rules()`` raises
-  pending      — the model is not ported yet (ROADMAP Queue 1 item 5c);
-                 ``rules()`` and ``tiny_model`` raise
 
 Upstream-only tensors the design drops (SAM's mask-prompt downscaler, DPT's
 learned resize convs in VGGT) are matched by explicit DROP rules so
@@ -103,7 +101,7 @@ def _drop(pattern: str):
 @dataclasses.dataclass
 class Family:
     name: str
-    status: str                      # exact | provisional | diverged | pending
+    status: str                      # exact | provisional | diverged
     rules: Callable[[], list]
     tiny_model: Callable[[torch.Generator], torch.nn.Module]
     invert: Callable[[Tuple[str, ...], np.ndarray], Any]
@@ -1404,6 +1402,136 @@ def _esrgan_invert(path, arr):
 
 
 # ---------------------------------------------------------------------------
+# flux — FLUX.1 MMDiT (diffusers FluxTransformer2DModel layout), the
+# reference's FLUX upscaler backbone (src/segmentation/upscaler.py:26-39)
+# ---------------------------------------------------------------------------
+
+def flux_rules() -> list:
+    lin = lambda path: lambda k, m: path(m) + (
+        ("kernel" if m.group("wb") == "weight" else "bias"),)
+    r = []
+    for tk, ours in (("x_embedder", "x_in"), ("context_embedder", "cond_in"),
+                     ("proj_out", "proj_out")):
+        r.append((rf"{tk}\.(?P<wb>weight|bias)",
+                  lin(lambda m, ours=ours: (ours,)), T_LIN))
+    for tk, ours in (("timestep_embedder", ("t_in", "t_out")),
+                     ("guidance_embedder", ("g_in", "g_out")),
+                     ("text_embedder", ("p_in", "p_out"))):
+        r.append((rf"time_text_embed\.{tk}\.linear_(?P<n>[12])"
+                  rf"\.(?P<wb>weight|bias)",
+                  lin(lambda m, ours=ours: (ours[int(m.group("n")) - 1],)),
+                  T_LIN))
+    r.append((r"norm_out\.linear\.(?P<wb>weight|bias)",
+              lin(lambda m: ("norm_out_lin",)), T_LIN))
+
+    D = r"transformer_blocks\.(?P<i>\d+)"
+    blk = lambda m: (f"double{m.group('i')}",)
+    r.append((rf"{D}\.norm1\.linear\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("mod_img",)), T_LIN))
+    r.append((rf"{D}\.norm1_context\.linear\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("mod_txt",)), T_LIN))
+    r.append((rf"{D}\.attn\.to_(?P<p>[qkv])\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("attn", m.group("p"))), T_LIN))
+    r.append((rf"{D}\.attn\.norm_(?P<p>[qk])\.weight",
+              lambda k, m: blk(m) + ("attn", f"{m.group('p')}_norm",
+                                     "scale"), None))
+    r.append((rf"{D}\.attn\.add_(?P<p>[qkv])_proj\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("attn_add", f"add_{m.group('p')}")),
+              T_LIN))
+    r.append((rf"{D}\.attn\.norm_added_(?P<p>[qk])\.weight",
+              lambda k, m: blk(m) + ("attn_add", f"add_{m.group('p')}_norm",
+                                     "scale"), None))
+    r.append((rf"{D}\.attn\.to_out\.0\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("out",)), T_LIN))
+    r.append((rf"{D}\.attn\.to_add_out\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("add_out",)), T_LIN))
+    r.append((rf"{D}\.ff\.net\.0\.proj\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("ff", "fc1")), T_LIN))
+    r.append((rf"{D}\.ff\.net\.2\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("ff", "fc2")), T_LIN))
+    r.append((rf"{D}\.ff_context\.net\.0\.proj\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("ff_txt", "fc1")), T_LIN))
+    r.append((rf"{D}\.ff_context\.net\.2\.(?P<wb>weight|bias)",
+              lin(lambda m: blk(m) + ("ff_txt", "fc2")), T_LIN))
+
+    S = r"single_transformer_blocks\.(?P<i>\d+)"
+    sblk = lambda m: (f"single{m.group('i')}",)
+    r.append((rf"{S}\.norm\.linear\.(?P<wb>weight|bias)",
+              lin(lambda m: sblk(m) + ("mod",)), T_LIN))
+    r.append((rf"{S}\.attn\.to_(?P<p>[qkv])\.(?P<wb>weight|bias)",
+              lin(lambda m: sblk(m) + ("attn", m.group("p"))), T_LIN))
+    r.append((rf"{S}\.attn\.norm_(?P<p>[qk])\.weight",
+              lambda k, m: sblk(m) + ("attn", f"{m.group('p')}_norm",
+                                      "scale"), None))
+    r.append((rf"{S}\.proj_mlp\.(?P<wb>weight|bias)",
+              lin(lambda m: sblk(m) + ("proj_mlp",)), T_LIN))
+    r.append((rf"{S}\.proj_out\.(?P<wb>weight|bias)",
+              lin(lambda m: sblk(m) + ("proj_out",)), T_LIN))
+    return r
+
+
+def _flux_invert(path, arr):
+    a = np.asarray(arr)
+    wb = {"kernel": "weight", "bias": "bias"}
+    top = {"x_in": "x_embedder", "cond_in": "context_embedder",
+           "proj_out": "proj_out"}
+    emb = {"t_in": ("timestep_embedder", 1), "t_out": ("timestep_embedder", 2),
+           "g_in": ("guidance_embedder", 1), "g_out": ("guidance_embedder", 2),
+           "p_in": ("text_embedder", 1), "p_out": ("text_embedder", 2)}
+    if path[0] in top:
+        return (f"{top[path[0]]}.{wb[path[1]]}",
+                j2t_linear(a) if path[1] == "kernel" else a)
+    if path[0] in emb:
+        name, n = emb[path[0]]
+        return (f"time_text_embed.{name}.linear_{n}.{wb[path[1]]}",
+                j2t_linear(a) if path[1] == "kernel" else a)
+    if path[0] == "norm_out_lin":
+        return (f"norm_out.linear.{wb[path[1]]}",
+                j2t_linear(a) if path[1] == "kernel" else a)
+    if path[0].startswith("double"):
+        i = path[0][6:]
+        P = f"transformer_blocks.{i}"
+        rel = path[1:]
+        tl = lambda: j2t_linear(a) if rel[-1] == "kernel" else a
+        if rel[0] == "mod_img":
+            return (f"{P}.norm1.linear.{wb[rel[1]]}", tl())
+        if rel[0] == "mod_txt":
+            return (f"{P}.norm1_context.linear.{wb[rel[1]]}", tl())
+        if rel[0] == "attn":
+            if rel[1].endswith("_norm"):
+                return (f"{P}.attn.norm_{rel[1][0]}.weight", a)
+            return (f"{P}.attn.to_{rel[1]}.{wb[rel[2]]}", tl())
+        if rel[0] == "attn_add":
+            if rel[1].endswith("_norm"):
+                return (f"{P}.attn.norm_added_{rel[1][4]}.weight", a)
+            return (f"{P}.attn.{rel[1]}_proj.{wb[rel[2]]}", tl())
+        if rel[0] == "out":
+            return (f"{P}.attn.to_out.0.{wb[rel[1]]}", tl())
+        if rel[0] == "add_out":
+            return (f"{P}.attn.to_add_out.{wb[rel[1]]}", tl())
+        if rel[0] == "ff":
+            net = "net.0.proj" if rel[1] == "fc1" else "net.2"
+            return (f"{P}.ff.{net}.{wb[rel[2]]}", tl())
+        if rel[0] == "ff_txt":
+            net = "net.0.proj" if rel[1] == "fc1" else "net.2"
+            return (f"{P}.ff_context.{net}.{wb[rel[2]]}", tl())
+    if path[0].startswith("single"):
+        i = path[0][6:]
+        P = f"single_transformer_blocks.{i}"
+        rel = path[1:]
+        tl = lambda: j2t_linear(a) if rel[-1] == "kernel" else a
+        if rel[0] == "mod":
+            return (f"{P}.norm.linear.{wb[rel[1]]}", tl())
+        if rel[0] == "attn":
+            if rel[1].endswith("_norm"):
+                return (f"{P}.attn.norm_{rel[1][0]}.weight", a)
+            return (f"{P}.attn.to_{rel[1]}.{wb[rel[2]]}", tl())
+        if rel[0] in ("proj_mlp", "proj_out"):
+            return (f"{P}.{rel[0]}.{wb[rel[1]]}", tl())
+    return None
+
+
+# ---------------------------------------------------------------------------
 # the port's modules at their tiny configs (f32, CPU, from a generator)
 # ---------------------------------------------------------------------------
 
@@ -1519,12 +1647,11 @@ def _esrgan_tiny(gen):
     return m
 
 
-def _pending(name: str):
-    def fn(*_args):
-        raise NotImplementedError(
-            f"family '{name}': the model is not ported yet; its rule table "
-            "comes with it (ROADMAP Queue 1 item 5c)")
-    return fn
+def _flux_tiny(gen):
+    from regen3d_tpu_torch.models import flux
+    m = flux.FluxTransformer(_f32(flux.FluxConfig.tiny()), device="cpu")
+    flux.init_flax_style_(m, gen)
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -1572,9 +1699,10 @@ FAMILIES: Dict[str, Family] = {
                        _sd_unet_invert),
     "esrgan": Family("esrgan", "exact", esrgan_rules, _esrgan_tiny,
                      _esrgan_invert),
-    # the FLUX transformer waits for its model (Queue 1 item 5c)
-    "flux": Family("flux", "pending", _pending("flux"), _pending("flux"),
-                   _no_invert),
+    # FLUX.1's MMDiT (the FLUX upscaler's transformer): provisional, as in
+    # the JAX package; numerics await a real checkpoint
+    "flux": Family("flux", "provisional", flux_rules, _flux_tiny,
+                   _flux_invert),
 }
 
 
@@ -1636,10 +1764,8 @@ def selftest(family: str) -> List[str]:
     """Round-trip completeness check; returns verify errors (empty = OK).
 
     Diverged families have no rule table by design: selftest proves their
-    tiny module builds. Pending families return nothing to check."""
+    tiny module builds."""
     fam = FAMILIES[family]
-    if fam.status == "pending":
-        return []
     if fam.status == "diverged":
         fam.tiny_model(torch.Generator().manual_seed(0))
         return []

@@ -16,7 +16,9 @@ and phase 3's texture models: ``regen3d_tpu.models.sd_unet.SDUNet``,
 ``sd_vae.SDAutoencoderKL`` and ``esrgan.RRDBNet`` → their namesakes, and
 ``regen3d_tpu.pipeline.texgen.MultiviewTexGen`` (``cond_proj``,
 ``cam_proj``, ``unet/…``) → :class:`~regen3d_tpu_torch.pipeline.texgen.
-MultiviewTexGen`.
+MultiviewTexGen`, and phase 1's upscalers: ``regen3d_tpu.models.flux.
+FluxTransformer``, ``vae.AutoencoderKL`` and the x4 ``unet.UNet`` → their
+namesakes (none has a transposed convolution).
 
 The port names its submodules after the flax tree, so the map is
 mechanical: path ``a/b/c/leaf`` → ``a.b.c.leaf`` with

@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -399,3 +400,23 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
                       mode="bilinear", align_corners=False,
                       antialias=oh < ih or ow < iw)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, num)`` in f32 bit for bit as XLA's CPU
+    compiler evaluates it: point i is s·(1 − i·r) + i·(e·r) with
+    r = f32(1/(num − 1)), the last product fused into the add (one
+    rounding), and the last point ``stop`` itself (checked at 8 to 300
+    points). ``torch.linspace`` and ``np.linspace`` round other points:
+    truncated to int32, 999 → 0 over n points lands one step off at 35 of
+    n = 1..100."""
+    f32 = np.float32
+    s, e = f32(start), f32(stop)
+    if num == 1:
+        return np.asarray([s], f32)
+    it = np.arange(num - 1, dtype=f32)
+    recip = f32(1) / f32(num - 1)
+    a = s * (f32(1) - it * recip)
+    out = (a.astype(np.float64)
+           + it.astype(np.float64) * np.float64(e * recip)).astype(f32)
+    return np.concatenate([out, [e]]).astype(f32)

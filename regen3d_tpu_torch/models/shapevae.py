@@ -41,6 +41,7 @@ from regen3d_tpu_torch.models.layers import (
     TransformerBlock,
     fourier_features,
 )
+from regen3d_tpu_torch.models import layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,21 +135,8 @@ class ShapeDecoder(nn.Module):
 
 def linspace_f32(bounds: float, resolution: int) -> np.ndarray:
     """``jnp.linspace(-bounds, bounds, resolution)`` bit for bit as XLA's CPU
-    compiler evaluates it (checked at 8 to 300 points): step i is
-    s·(1 − i·r) + i·(e·r) with r = f32(1/(R − 1)), the last product fused
-    into the add (one rounding), and the last point ``bounds`` itself.
-    ``torch.linspace`` and ``np.linspace`` round other points."""
-    f32 = np.float32
-    s, e = f32(-bounds), f32(bounds)
-    if resolution == 1:
-        return np.asarray([s], f32)
-    it = np.arange(resolution - 1, dtype=f32)
-    recip = f32(1) / f32(resolution - 1)
-    a = s * (f32(1) - it * recip)
-    # a + i·c with one rounding: the f64 product and sum are exact here
-    out = (a.astype(np.float64)
-           + it.astype(np.float64) * np.float64(e * recip)).astype(f32)
-    return np.concatenate([out, [e]]).astype(f32)
+    compiler evaluates it (``layers.linspace_f32``)."""
+    return layers.linspace_f32(-bounds, bounds, resolution)
 
 
 def _lin(bounds, resolution, device) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The UNet trunk and phase 2's matting net (counterpart of the part of
-regen3d_tpu/models/unet.py that ``MattingUNet`` runs; ``ddim_sample`` and
-the diffusion consumers of ``UNet`` are ROADMAP Queue 1 item 5).
+"""The UNet trunk, its DDIM sampler and phase 2's matting net (counterpart
+of regen3d_tpu/models/unet.py): the SD-x4 upscaler's UNet
+(``UNetConfig()``, driven by ``ddim_sample`` from
+``pipeline/upscale.py``) and ``MattingUNet``.
 
 Residual blocks with an optional timestep FiLM, flash-attention blocks at
 the low-resolution levels, strided-conv downsampling and nearest-2× then
@@ -16,8 +17,9 @@ on the card unless ``device`` is given.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -27,6 +29,7 @@ from regen3d_tpu_torch.models.layers import (
     Conv,
     Dense,
     init_flax_layers_,
+    linspace_f32,
     timestep_embedding,
 )
 
@@ -52,6 +55,12 @@ class UNetConfig:
     num_heads: int = 8
     time_conditioned: bool = True
     dtype: torch.dtype = torch.bfloat16
+
+    @classmethod
+    def tiny(cls, in_channels=7, out_channels=4) -> "UNetConfig":
+        return cls(in_channels=in_channels, out_channels=out_channels,
+                   base=16, mults=(1, 2), attn_levels=(1,),
+                   blocks_per_level=1, num_heads=2)
 
 
 class GroupNorm(nn.Module):
@@ -199,6 +208,57 @@ class UNet(nn.Module):
                 h = h.repeat_interleave(2, 1).repeat_interleave(2, 2)
                 h = getattr(self, f"up{li}_conv")(h)
         return self.out(F.silu(self.out_norm(h)))
+
+
+# --- sampler ---------------------------------------------------------------
+
+def ddim_schedule(num_steps: int, num_train_steps: int = 1000
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(int timesteps (num_steps,) from num_train_steps − 1 down to 0, as
+    ``jnp.linspace(...).astype(int32)`` gives them; ᾱ (num_train_steps,)
+    f32 over betas ``linspace(1e-4, 0.02)``). ᾱ is a sequential f32
+    product; XLA's ``cumprod`` rounds otherwise, within 1e-6 of ᾱ (measured
+    7.7e-7 at 1000 steps)."""
+    ts = linspace_f32(num_train_steps - 1, 0, num_steps).astype(np.int32)
+    betas = linspace_f32(1e-4, 0.02, num_train_steps)
+    return ts, np.cumprod(np.float32(1) - betas, dtype=np.float32)
+
+
+@torch.no_grad()
+def ddim_sample(model: UNet, shape: Tuple[int, ...],
+                cond_img: Optional[torch.Tensor] = None,
+                num_steps: int = 50, guidance_scale: float = 1.0,
+                num_train_steps: int = 1000,
+                generator: Optional[torch.Generator] = None,
+                x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DDIM (η = 0) over a linear-β ᾱ schedule, ε-prediction: the SD-x4
+    upscaler's sampler (50 steps, guidance 5.0). Starts from ``x0`` (else
+    N(0, 1) noise of ``shape`` drawn from ``generator``) on the model's
+    device, in f32; the last step's ᾱ_next is 1. Guided (guidance ≠ 1 and
+    a ``cond_img``): two forwards a step, with ``cond_img`` and with
+    zeros, ε = ε_u + guidance·(ε_c − ε_u). Returns (B, h, w, C) f32."""
+    dev = next(model.parameters()).device
+    x = (x0.to(device=dev, dtype=torch.float32) if x0 is not None
+         else torch.randn(tuple(shape), generator=generator, device=dev))
+    ts, alphas_bar = ddim_schedule(num_steps, num_train_steps)
+    f32 = np.float32
+    guided = guidance_scale != 1.0 and cond_img is not None
+    for i in range(num_steps):
+        a_cur = alphas_bar[ts[i]]
+        a_next = alphas_bar[ts[i + 1]] if i + 1 < num_steps else f32(1.0)
+        coef = [torch.tensor(v, device=dev) for v in (
+            np.sqrt(f32(1) - a_cur), np.sqrt(a_cur), np.sqrt(a_next),
+            np.sqrt(f32(1) - a_next))]
+        tt = torch.full((x.shape[0],), float(ts[i]), device=dev)
+        if guided:
+            eps_c = model(x, tt, cond_img)
+            eps_u = model(x, tt, torch.zeros_like(cond_img))
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+        else:
+            eps = model(x, tt, cond_img)
+        pred = (x - coef[0] * eps) / coef[1]
+        x = coef[2] * pred + coef[3] * eps
+    return x
 
 
 class MattingUNet(nn.Module):

@@ -22,9 +22,12 @@ Without a model object, a ``detector_checkpoint`` or (for
 is loaded (``pipeline/detector_distill.py``,
 ``pipeline/saliency_distill.py``: the JAX package's orbax directories or
 the port's), as is ``depth_anything_checkpoint`` (``pipeline/depth.py``);
-a missing path is logged and falls back as in the JAX package. Refused:
-``interactive_edit`` and ``use_banana: false`` (the editor UI and the
-upscaler: ROADMAP Queue 1 item 5).
+a missing path is logged and falls back as in the JAX package. Under
+``interactive_edit`` the detections go through the HTTP mask editor
+(``pipeline/editor_ui.py``, with ``sam`` where given) before the export;
+under ``use_banana: false`` the crops are upscaled into
+``findings/upscaled/cropped`` (``pipeline/upscale.py``, weightless from
+the CLI).
 """
 
 from __future__ import annotations
@@ -288,26 +291,31 @@ def run(cfg: Mapping, sam=None, detector=None, saliency_model=None,
     :class:`~regen3d_tpu_torch.models.depth_anything.DepthAnything`), the
     model of ``depth_anything_checkpoint``, or the offline prior. Models
     passed in run where they were built; models loaded from checkpoints
-    and the weightless k-means run on ``device``. Unlike the JAX package,
-    a failing depth step is not caught (ROADMAP Queue 3 al). Returns the
+    and the weightless k-means run on ``device``. ``interactive_edit``
+    blocks on the mask editor (the config's ``editor_port``) until its
+    Finish, and its detections are exported; ``use_banana: false``
+    upscales the crops after the depth step. Unlike the JAX package, a
+    failing depth step is not caught (ROADMAP Queue 3 al). Returns the
     stems."""
-    if bool(cfg.get("interactive_edit", False)):
-        raise NotImplementedError(
-            "phase 1: interactive_edit (the browser mask editor, "
-            "pipeline/editor_ui.py) is not ported (ROADMAP Queue 1 item 5)")
-    if not bool(cfg.get("use_banana", True)):
-        raise NotImplementedError(
-            "phase 1: use_banana false upscales the crops with the diffusion "
-            "upscaler (pipeline/upscale.py), which is not ported (ROADMAP "
-            "Queue 1 item 5)")
     image = load_image_rgb(cfg.path("input_image"), max_side=1280)
     if detections is None:
         detections = detect_and_segment(cfg, image, sam=sam, detector=detector,
                                         saliency_model=saliency_model,
                                         device=device)
+    if bool(cfg.get("interactive_edit", False)):
+        from regen3d_tpu_torch.pipeline.editor_ui import (
+            edit_segmentations_interactive,
+        )
+        detections = edit_segmentations_interactive(image, detections, cfg,
+                                                    sam=sam)
+        log.info("phase1: interactive session finished with %d detections",
+                 len(detections))
     if not detections:
         log.warning("phase1: no detections")
         return []
     stems = export_findings(cfg, image, detections)
     depth_mod.run(cfg, model=depth_model, device=device)
+    if not bool(cfg.get("use_banana", True)):
+        from regen3d_tpu_torch.pipeline import upscale
+        upscale.run(cfg)
     return stems

@@ -1,16 +1,15 @@
 """The port's upstream key layouts (``regen3d_tpu_torch/models/
 conversion.py``) against the JAX package's tables, on the CPU:
 
-* each of the twelve ported families: the JAX package's
+* each of the thirteen ported families: the JAX package's
   ``conversion.synthetic_state`` (its inverse map on a tiny tree, drawn
   from a seed so that every leaf carries signal) loads through the port's
   ``load_upstream`` with zero unmapped keys into the tensors
   ``from_jax.load_from_jax`` gives from the same tree, and the port's own
   inverse (``upstream_state``) rebuilds the JAX package's state dict key for
   key and value for value;
-* the diverged families raise as in JAX; FLUX, unported, names Queue 1
-  item 5c, and the SD UNet, VAE, Marigold and ESRGAN tables round-trip
-  the port's own tiny modules;
+* the diverged families raise as in JAX; the SD UNet, VAE, Marigold,
+  ESRGAN and FLUX tables round-trip the port's own tiny modules;
 * the CLI: ``--selftest``, a conversion with ``--verify`` into a directory
   that loads, and the ``--max-unmapped`` refusal;
 * VGGT, SAM and the DiT on the committed activation fixtures (the tiny
@@ -37,7 +36,7 @@ from regen3d_tpu_torch.models.weights import (
 from test_torch_package import ROOT, one_torch_thread  # noqa: F401
 
 PORTED = ["sam", "vggt", "dust3r", "lpips", "dit", "midi", "depth_anything",
-          "shapevae", "sd_unet", "sd_vae", "marigold", "esrgan"]
+          "shapevae", "sd_unet", "sd_vae", "marigold", "esrgan", "flux"]
 FIXTURES = ROOT / "tests" / "fixtures" / "activations"
 
 
@@ -95,20 +94,15 @@ def test_diverged_families_raise_as_in_jax(family):
 @pytest.mark.parametrize("family", ["sd_unet", "sd_vae", "marigold",
                                     "esrgan", "flux"])
 def test_unported_families_name_item_5(family):
-    """FLUX waits for Queue 1 item 5c and names it; the four SD-family
-    tables are ported: each round-trips its own tiny module through the
+    """The families Queue 1 item 5 ported (the four SD-family tables in
+    5a-5b, FLUX's in 5c): each round-trips its own tiny module through the
     upstream layout (``synthetic_state`` → ``load_upstream``) tensor for
-    tensor, and ``marigold`` is ``sd_unet``'s table under another name."""
+    tensor with the JAX package's status, and ``marigold`` is
+    ``sd_unet``'s table under another name."""
     assert family in jc.FAMILIES
-    if family == "flux":
-        assert tc.FAMILIES[family].status == "pending"
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-            tc.FAMILIES[family].rules()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
-            tc.tiny_init(family)
-        return
     fam = tc.FAMILIES[family]
-    assert fam.status == jc.FAMILIES[family].status == "exact"
+    assert fam.status == jc.FAMILIES[family].status == (
+        "provisional" if family == "flux" else "exact")
     state, tree = tc.synthetic_state(family, seed=5)
     model = fam.tiny_model(torch.Generator().manual_seed(6))
     tc.load_upstream(family, state, model)
@@ -119,6 +113,12 @@ def test_unported_families_name_item_5(family):
     assert tc.selftest(family) == []
     if family == "marigold":
         assert sorted(state) == sorted(tc.synthetic_state("sd_unet", 5)[0])
+    if family == "flux":        # 1 double and 2 single blocks, upstream names
+        assert {k.split(".")[0] for k in state} >= {
+            "transformer_blocks", "single_transformer_blocks",
+            "time_text_embed", "norm_out", "proj_out"}
+        assert len({k.split(".")[1] for k in state
+                    if k.startswith("single_")}) == 2
 
 
 def test_selftest_cli(capsys):
@@ -126,8 +126,7 @@ def test_selftest_cli(capsys):
     out = capsys.readouterr().out
     for fam in PORTED:
         assert f"{fam}" in out
-    assert out.count(": OK") == len(PORTED) + 3
-    assert out.count("waiting for ROADMAP Queue 1 item 5c") == 1
+    assert out.count(": OK") == len(PORTED) + 3 == len(tc.FAMILIES)
 
 
 def test_convert_cli_writes_a_directory_that_loads(tmp_path):

@@ -80,6 +80,10 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.depth_distill",
     "regen3d_tpu_torch.models.sd_unet", "regen3d_tpu_torch.models.sd_vae",
     "regen3d_tpu_torch.models.esrgan", "regen3d_tpu_torch.pipeline.texgen",
+    "regen3d_tpu_torch.models.flux", "regen3d_tpu_torch.models.vae",
+    "regen3d_tpu_torch.pipeline.upscale",
+    "regen3d_tpu_torch.pipeline.interactive",
+    "regen3d_tpu_torch.pipeline.editor_ui",
 ]
 # imported only inside the functions that need them: the card's machine
 # has none of them
@@ -134,10 +138,12 @@ def test_weight_bridge_uses_every_leaf_once():
 
 @pytest.mark.parametrize("family", ["detector", "saliency",
                                     "depth_anything", "dust3r", "matting",
-                                    "sd_unet", "sd_vae", "esrgan", "texgen"])
+                                    "sd_unet", "sd_vae", "esrgan", "texgen",
+                                    "flux", "vae", "unet_x4"])
 def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
-    """The phase-1 models', DUSt3R's, phase 2's matting net's and phase 3's
-    texture models' flax trees (shapes only, no compile) map leaf for leaf
+    """The phase-1 models', DUSt3R's, phase 2's matting net's, phase 3's
+    texture models' and the upscalers' (FLUX, the x4 UNet and its VAE)
+    flax trees (shapes only, no compile) map leaf for leaf
     onto the port's modules: the detector's and the SD UNet's
     ``Embed.embedding`` land on their embeddings, the transposed
     convolutions are named per model and get mirrored taps, DUSt3R's
@@ -223,6 +229,35 @@ def test_weight_bridge_uses_every_leaf_once_in_phase1_models(family):
             frozenset()
         leaf, where = ("body_1", "rdb3", "conv5", "bias"), \
             "body_1.rdb3.conv5.bias"
+    elif family == "flux":
+        from regen3d_tpu.models import flux as jfl
+        from regen3d_tpu_torch.models import flux as tfl
+        shapes = jax.eval_shape(jfl.FluxTransformer(jfl.FluxConfig.tiny()).init,
+                                key, jnp.zeros((1, 16, 8)), jnp.zeros((1,)),
+                                jnp.zeros((1, 8, 32)))
+        model, ct = tfl.FluxTransformer(tfl.FluxConfig.tiny(), device="cpu"), \
+            frozenset()
+        leaf, where = ("double0", "attn_add", "add_k", "kernel"), \
+            "double0.attn_add.add_k.weight"
+    elif family == "vae":
+        from regen3d_tpu.models import vae as jva
+        from regen3d_tpu_torch.models import vae as tva
+        shapes = jax.eval_shape(jva.AutoencoderKL(jva.VAEConfig.tiny()).init,
+                                key, jnp.zeros((1, 16, 16, 3)))
+        model, ct = tva.AutoencoderKL(tva.VAEConfig.tiny(), device="cpu"), \
+            frozenset()
+        leaf, where = ("decoder", "mid_attn", "attn", "k", "kernel"), \
+            "decoder.mid_attn.attn.k.weight"
+    elif family == "unet_x4":
+        from regen3d_tpu.models import unet as jun
+        from regen3d_tpu_torch.models import unet as tun
+        shapes = jax.eval_shape(jun.UNet(jun.UNetConfig.tiny()).init, key,
+                                jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)),
+                                jnp.zeros((1, 16, 16, 3)))
+        model, ct = tun.UNet(tun.UNetConfig.tiny(), device="cpu"), \
+            frozenset()
+        leaf, where = ("up1_1_attn", "attn", "proj", "kernel"), \
+            "up1_1_attn.attn.proj.weight"
     elif family == "texgen":
         from regen3d_tpu.models.sd_unet import SDUNetConfig as JU
         from regen3d_tpu.pipeline import texgen as jtg

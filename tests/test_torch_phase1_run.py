@@ -19,7 +19,11 @@
   too; ``run`` with tiny SAM, detector, saliency net and Depth-Anything:
   the same stems, masks equal but for pixels where SAM's logit is within
   rounding of 0 (at most 0.5% of a finding), depth.png within one level;
-* the refusals and fallbacks.
+* phase 1's two last switches, the mask editor (driven over HTTP by a
+  client) and the weightless upscaler, in both packages, every PNG pixel
+  for pixel; the port's ``-p 1 3`` with ``use_banana: false`` feeds phase
+  3 from ``findings/upscaled/cropped``;
+* the checkpoint refusals and fallbacks.
 
 ``cv2`` is hidden from the JAX package, whose outline dilation and
 distance transform take their numpy/scipy branches then, as the port does.
@@ -29,6 +33,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -574,24 +579,21 @@ def test_cli_loads_the_checkpoint_keys(models, tmp_path):
 # --- refusals and fallbacks ---------------------------------------------------
 
 @pytest.mark.parametrize("over,exc,match", [
-    ({"interactive_edit": True}, NotImplementedError, "Queue 1 item 5"),
-    ({"use_banana": False}, NotImplementedError, "Queue 1 item 5"),
     ({"depth_anything_checkpoint": "depth_anything_checkpoint"},
      ImportError, "tensorstore"),
     ({"detector_checkpoint": "detector_checkpoint"}, ImportError,
      "tensorstore")],
-    ids=["editor", "upscaler", "depth_checkpoint", "detector_checkpoint"])
+    ids=["depth_checkpoint", "detector_checkpoint"])
 def test_run_refuses_what_is_not_ported(models, tmp_path, monkeypatch, over,
                                         exc, match):
-    """Item 5's switches are refused before any work; an orbax checkpoint
-    directory (written by the JAX package) where tensorstore is absent is
-    refused naming it: the detector's before any work, Depth-Anything's
-    where the JAX package loads it, after the findings."""
+    """An orbax checkpoint directory (written by the JAX package) where
+    tensorstore is absent is refused naming it: the detector's before any
+    work, Depth-Anything's where the JAX package loads it, after the
+    findings."""
     Image.fromarray(_skill_room()).save(tmp_path / "input.png")
-    if exc is ImportError:
-        dirs = _jax_orbax_dirs(models, tmp_path / "ckpt")
-        over = {k: dirs[v] for k, v in over.items()}
-        monkeypatch.setitem(sys.modules, "tensorstore", None)
+    dirs = _jax_orbax_dirs(models, tmp_path / "ckpt")
+    over = {k: dirs[v] for k, v in over.items()}
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
     cfg = default_config(str(tmp_path / "output"),
                          input_image=str(tmp_path / "input.png"), **over)
     with pytest.raises(exc, match=match):
@@ -601,6 +603,103 @@ def test_run_refuses_what_is_not_ported(models, tmp_path, monkeypatch, over,
         assert len(list(findings.glob("*.png"))) >= 4
     else:   # refused before any work: nothing on the output bus
         assert not (tmp_path / "output" / "findings").exists()
+
+
+# the edits a client makes to the skill room's weightless findings
+EDITS = [{"op": "new_from_box", "label": "rug", "x0": 160, "y0": 150,
+          "x1": 240, "y1": 185},
+         {"op": "add_point", "idx": 0, "x": 40, "y": 60, "positive": True},
+         {"op": "add_point", "idx": 1, "x": 120, "y": 100, "positive": False},
+         {"op": "merge", "i": 1, "j": 2},
+         {"op": "relabel", "idx": 0, "label": "chair"},
+         {"op": "resolve_overlaps"}]
+
+
+@pytest.mark.parametrize("over", [{"interactive_edit": True},
+                                  {"use_banana": False}],
+                         ids=["editor", "upscaler"])
+def test_run_switch_matches_jax(tmp_path, over):
+    """Phase 1's two last switches, weightless, in both packages on the
+    skill room: ``interactive_edit`` blocks on the HTTP editor until a
+    client's Finish (the same edits sent to both) and exports the edited
+    findings; ``use_banana: false`` writes the LANCZOS upscales to
+    ``findings/upscaled/cropped``. Every PNG pixel for pixel."""
+    from test_torch_editor import drive, free_port
+
+    roots, cfgs = {}, {}
+    for name, make in (("jax", jdefault_config), ("port", default_config)):
+        roots[name] = tmp_path / name
+        roots[name].mkdir()
+        Image.fromarray(_skill_room()).save(roots[name] / "input.png")
+        cfgs[name] = make(str(roots[name] / "output"),
+                          input_image=str(roots[name] / "input.png"),
+                          editor_port=free_port(), **over)
+    replies = {}
+
+    def client(name):
+        replies[name] = drive(cfgs[name]["editor_port"], EDITS)[0]
+
+    stems = {}
+    for name, run in (("jax", jp.run), ("port", tp.run)):
+        kw = {} if name == "jax" else {"device": "cpu"}
+        t = None
+        if "interactive_edit" in over:
+            t = threading.Thread(target=client, args=(name,), daemon=True)
+            t.start()
+        mp = _no_cv2()
+        try:
+            stems[name] = run(cfgs[name], **kw)
+        finally:
+            mp.undo()
+        if t is not None:
+            t.join(timeout=60)
+            assert all(code == 200 for code, _ in replies[name])
+    assert stems["port"] == stems["jax"] and stems["port"]
+    stems = stems["port"]
+    _same_files(roots["jax"], roots["port"])
+    if "interactive_edit" in over:
+        assert "chair" in " ".join(stems) and "rug" in " ".join(stems)
+    else:
+        up = roots["port"] / "output" / "findings" / "upscaled" / "cropped"
+        assert sorted(p.stem for p in up.glob("*.png")) == sorted(stems)
+
+
+def test_p13_feeds_phase3_from_the_upscales(tmp_path, monkeypatch):
+    """``-p 1 3`` through the port's orchestrator with ``use_banana:
+    false``: with no ``banana/prepped``, phase 3 takes every 512²
+    upscale of ``findings/upscaled/cropped`` (the generator patched to a
+    sphere, the vertex colours to grey) and writes one GLB per finding."""
+    from regen3d_tpu_torch.orchestrator import run_phases
+    from regen3d_tpu_torch.pipeline import phase3_assets as tp3
+
+    seen = []
+
+    def sphere(self, generator, images, *args, **kw):
+        seen.append(tuple(images.shape))
+        res = args[2]
+        g = np.linspace(-1.01, 1.01, res, dtype=np.float32)
+        x, y, z = np.meshgrid(g, g, g, indexing="ij")
+        return np.repeat((np.sqrt(x * x + y * y + z * z) - 0.5)[None],
+                         images.shape[0], 0)
+
+    def grey(verts, faces, img, device="cpu"):
+        seen.append(img.shape)
+        return np.full((len(verts), 3), 0.5, np.float32)
+
+    monkeypatch.setattr(tp3.AssetGenerator, "generate_sdf_batch", sphere)
+    monkeypatch.setattr(tp3, "vertex_colors_from_image", grey)
+    Image.fromarray(_skill_room()).save(tmp_path / "input.png")
+    cfg = default_config(str(tmp_path / "output"),
+                         input_image=str(tmp_path / "input.png"),
+                         use_banana=False, octree_resolution_hy=24,
+                         num_inf_steps_hy=1)
+    run_phases(cfg, [1, 3], device="cpu")
+    up = sorted(p.stem for p in (tmp_path / "output" / "findings" /
+                                 "upscaled" / "cropped").glob("*.png"))
+    assert len(up) >= 4 and seen[0][0] == len(up)
+    assert seen[1:] == [(512, 512, 4)] * len(up)
+    glbs = sorted(p.stem for p in (tmp_path / "output").rglob("*.glb"))
+    assert glbs == up
 
 
 def test_missing_checkpoints_fall_back(tmp_path):
