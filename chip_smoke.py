@@ -76,8 +76,8 @@ Phases, each reported on one line:
    background baked from the empty room, ICP) and phase 9 (the 15 metrics)
    gated on their artifacts and finite metrics, with their stage times,
    ICP's ms per iteration (and its device time) and the bake's time and
-   memory; phase 8 (the software renderer at 768 × 1024 and 768², the
-   HDRI world) gated on its renders, the scene dump and cam1's coverage,
+   memory; phase 8 (the software renderer at render_resolution 576, the
+   default 768 cut for the time limit, the HDRI world) gated on its renders, the scene dump and cam1's coverage,
    with its stage times and each view's z-buffer path (kmax, K), time and
    coverage, and the binned z-buffer at cam1's K = kmax against the dense
    one bit for bit; phase 9 reads phase 8's render; then phases 5 and 6,
@@ -101,8 +101,8 @@ Phases, each reported on one line:
    flash kernel at phase 3's three shapes (the DiT's guided batch, the
    encoder's and trunk's self-attention, a decoder query chunk), timed
    beside SDPA and kept out of the forward sum; then phase 3's texture
-   paths (phase_texture) on that object's mesh, decimated to 50,000
-   faces: texgen.texture_mesh at TexGenConfig() (SDUNetConfig.multiview(6),
+   paths (phase_texture) on that object's mesh, decimated to 25,000
+   faces (the reference's 50,000 cut for the time limit): texgen.texture_mesh at TexGenConfig() (SDUNetConfig.multiview(6),
    SDVAEConfig(), 512², 15 steps) and texture_mesh_pbr (multiview(12),
    ESRGANConfig.x4plus() on the albedo atlas), random weights from a seed,
    timed by stage (geometry renders, VAE encode, DDIM, decode, bakes,
@@ -185,7 +185,23 @@ Phases, each reported on one line:
    then SAM-H's at full size (every gradient finite, the global blocks'
    rel-pos gradients non-zero, each grid-bias backward kernel launched 4
    times), and one more SAM-H VJP under torch.profiler, split into its ten
-   device operations with the most time.
+   device operations with the most time;
+12. the distillation trainers (phase_distill, run after phase 1's last
+   switches, before the alternates): one step of each micro trainer on the
+   card (bf16 compute, f32 weights) against the CPU's f32; the detector,
+   matting, saliency and depth runners through the CLI's functions at
+   their scripts' defaults and the shape runner at DistillConfig.small()'s
+   widths cut to 256 shapes and 100 + 100 steps, at once, each in a
+   process of its own (its launch counts read there), each gated on a
+   falling loss and finite
+   values, with s a step, flash launches a step by head dim, and the
+   held-out metric against its fallback (reported); then phase 1 from the
+   detector and saliency checkpoints they wrote (heads of 24 and 12)
+   through run_phases(cfg, [1]) and with SAM-H's saliency points, every
+   flash shape of those runs held against the plain version. The kernels'
+   D = 12 and 24 instances are held in step 2: bit for bit the width-16
+   and 32 instances on zero-padded inputs (forward, dq, dk, dv), then the
+   plain version's bounds.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the launches that compare a kernel with its plain version are not
@@ -200,6 +216,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -243,6 +260,15 @@ D512_SHAPES = [(1, 1, 4096, 4096, 512), (6, 1, 4096, 4096, 512),
                (12, 1, 4096, 4096, 512)]
 D4_SHAPES = [(6, 2, 1024, 1024, 4), (6, 2, 1024, 1025, 4),
              (6, 4, 256, 256, 4), (6, 4, 256, 1025, 4)]
+# the distilled detector's and saliency net's head dims (distill_config,
+# small_config), (B, H, Sq, Sk, D) at the runners' batch of 8: the saliency
+# stem at 96² (stride 4: 576 tokens, 2 heads of 48), the detector's patches
+# at 128² (64 tokens, 4 heads of 96), its text tower over the 18 labels (16
+# bytes, 4 heads of 48). D = 12 and 24 compute at width 16 and 32 inside
+# the kernels; each is held bit for bit against that instance on
+# zero-padded inputs, then under the plain version's bound
+DISTILL_SHAPES = [(8, 2, 576, 576, 24), (8, 4, 64, 64, 24),
+                  (18, 4, 16, 16, 12)]
 KERNELS = {
     "flash_fwd": dict(route="cuda", source="regen3d_tpu_torch/csrc/flash_fwd.cu",
                       replaces="regen3d_tpu/ops/attention.py:46"),
@@ -280,7 +306,9 @@ MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "texture_cli_texgen_launches", "texture_cli_texgen_pbr_launches",
               "texture_cli_atlas_launches", "flux_launches",
               "x4_upscale_launches", "flux_upscale_launches",
-              "cli_upscale_launches", "editor_launches")
+              "cli_upscale_launches", "editor_launches",
+              "distill_launches", "distill_phase1_launches",
+              "distill_phase1_sam_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -541,7 +569,35 @@ def phase_kernels(results):
               f"{GB_BWD_CHECKS}", **r["ms"])
 
     phase_wide_and_tiny(results, gen)
+    distill_fwd_kernels(results, gen)
     phase_silhouette(results, gen)
+
+
+def distill_fwd_kernels(results, gen):
+    """The forward at D = 12 and 24 (DISTILL_SHAPES): bit for bit the width
+    16 and 32 instances on zero-padded inputs, under fwd_error's bound,
+    timed beside SDPA; the three instances in ptxas's report without spills
+    (phase_device fails on any forward spill). Kept out of the 11-shape
+    sum, under flash_fwd.distill_shapes."""
+    rows = []
+    for shape in DISTILL_SHAPES:
+        d = shape[-1]
+        r = padded_check(shape, gen, -(-d // 16) * 16)
+        rows.append(dict(shape=shape, err=r["err"], err_lse=r["err_lse"],
+                         sdpa_err=r["sdpa_err"], bound_ms=r["bound"][0],
+                         bound_by=r["bound"][1], **r["ms"]))
+    # D = 24 has no split instance (csrc/flash_fwd.cu's launch_plain)
+    ptx = {f"D{d} {k}": results["ptxas"].get(f"fwd_kernel<{d}, 0, {s}>")
+           for d, k, s in ((12, "unsplit", "false"), (12, "split", "true"),
+                           (24, "unsplit", "false"))}
+    log(f"ptxas, the D = 12 and 24 forward instances: {ptx}")
+    if not all(ptx.values()):
+        raise AssertionError(f"the D = 12 and 24 forward instances: {ptx}")
+    f = results["flash_fwd"]
+    for r in rows:
+        f["max_abs_err"] = max(f["max_abs_err"], r["err"])
+        f["max_abs_err_lse"] = max(f["max_abs_err_lse"], r["err_lse"])
+    f["distill_shapes"], f["distill_ptxas"] = rows, ptx
 
 
 def sdpa_backends_at(q):
@@ -1056,6 +1112,59 @@ def flash_bwd_case(shape, gen):
     return out
 
 
+def bwd_padded_check(shape, gen, wide):
+    """The dq and dkv kernels at ``shape`` (head dim D = 12 or 24) bit for
+    bit the width-``wide`` instances on q, k, v and g zero-padded to
+    ``wide`` columns, with the same scale 1/√D, lse and delta: dq, dk and
+    dv equal the padded outputs' first D columns, whose other columns are
+    exactly 0. Each output is written into a buffer with a NaN tail of one
+    row, which must come back untouched: no column past D reaches device
+    memory past the last row."""
+    import torch
+    import torch.nn.functional as F
+
+    from regen3d_tpu_torch.ops import attention as att
+
+    b, h, sq, sk, d = shape
+    q, g = (torch.randn((b, h, sq, d), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    s = d ** -0.5
+    with torch.no_grad():
+        o, lse = att.flash_attention_fwd(q, k, v)
+    delta = (o.float() * g.float()).sum(-1)
+
+    def guarded(n):
+        buf = torch.full((b * h * n * d + wide,), float("nan"),
+                         dtype=torch.bfloat16, device="cuda")
+        return buf, buf[:b * h * n * d].view(b, h, n, d)
+
+    (qbuf, dq), (kbuf, dk), (vbuf, dv) = guarded(sq), guarded(sk), \
+        guarded(sk)
+    att._launch("flash_bwd", "flash_bwd_dq_bf16", "flash_bwd_dq", q, k, v,
+                g, lse, delta, dq, b * h, sq, sk, d, float(s))
+    att._launch("flash_bwd", "flash_bwd_dkv_bf16", "flash_bwd_dkv", q, k, v,
+                g, lse, delta, dk, dv, b * h, sq, sk, d, float(s))
+    pad = lambda t: F.pad(t, (0, wide - d)).contiguous()
+    args = (pad(q), pad(k), pad(v), pad(g), lse, delta, s)
+    wq = att.flash_bwd_dq(*args)
+    wk, wv = att.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for name, x, w, buf in (("dq", dq, wq, qbuf), ("dk", dk, wk, kbuf),
+                            ("dv", dv, wv, vbuf)):
+        if not (torch.equal(x, w[..., :d].contiguous())
+                and float(w[..., d:].abs().max()) == 0.0):
+            raise AssertionError(f"flash_bwd {name} D = {d} at {shape}: not "
+                                 f"bit for bit the D = {wide} instance on "
+                                 f"zero-padded inputs")
+        if not bool(buf[x.numel():].isnan().all()):
+            raise AssertionError(f"flash_bwd {name} D = {d} at {shape}: a "
+                                 f"write past the output's last row")
+    log(f"flash_bwd D = {d} at {shape}: dq, dk, dv bit for bit the D = "
+        f"{wide} instances on zero-padded inputs; no write past the rows")
+
+
 def gb_bwd_case(shape, grid, gen, timed):
     """The grid-bias dq and dkv kernels at one (B, H, S, D) and (kh, kw) key
     grid, with a non-zero upstream gradient and bias factors of the size
@@ -1145,6 +1254,8 @@ def phase_bwd_kernels(results):
     def flash_case(shape, timed):
         nonlocal lib_ms
         r = flash_bwd_case(shape, gen)
+        work = attention_bwd_work(*shape)
+        r["bound"] = {n: bound(*work[n], "bf16") for n in ("dq", "dkv")}
         e, e_lib, t = r["err"], r["sdpa_err"], r["ms"]
         if timed:
             for name in ("dq", "dk", "dv"):
@@ -1176,6 +1287,7 @@ def phase_bwd_kernels(results):
             f"{b_dkv[0]:.4f} {b_dkv[1]}); the two kernels "
             f"{t['dq'] + t['dkv']:.3f} ms against sdpa backward (dq, dk, dv "
             f"together) {t['lib']:.3f} ms")
+        return r
     for shape in BWD_SHAPES:
         flash_case(shape, True)
 
@@ -1221,6 +1333,19 @@ def phase_bwd_kernels(results):
     timed = gb_case(GB_SHAPE, GB_GRID, True)
     for shape in BWD_CHECK_SHAPES:
         flash_case(shape, False)
+    distill = []
+    for shape in DISTILL_SHAPES:
+        d = shape[-1]
+        bwd_padded_check(shape, gen, -(-d // 16) * 16)
+        r = flash_case(shape, False)
+        distill.append(dict(shape=shape, err=r["err"],
+                            sdpa_err=r["sdpa_err"], bound=r["bound"],
+                            **r["ms"]))
+    ptx = {f"{k}<{d}>": results["ptxas"].get(f"{k}<{d}>")
+           for k in ("bwd_dq_kernel", "bwd_dkv_kernel") for d in (12, 24)}
+    log(f"ptxas, the D = 12 and 24 backward instances: {ptx}")
+    if not all(ptx.values()):
+        raise AssertionError(f"the D = 12 and 24 backward instances: {ptx}")
     for shape, grid in GB_BWD_CHECKS:
         gb_case(shape, grid, False)
     for n in ("dq", "dkv"):
@@ -1234,7 +1359,15 @@ def phase_bwd_kernels(results):
                     "together, the same time for both kernels of the pair",
             timed=f"times summed over the {len(BWD_SHAPES)} shapes (B, H, "
                   f"Sq, Sk, D) {BWD_SHAPES}; errors also over "
-                  f"{BWD_CHECK_SHAPES}")
+                  f"{BWD_CHECK_SHAPES} and {DISTILL_SHAPES}",
+            distill_shapes=[dict(shape=r["shape"], ms=r[n], plain_ms=r[n + "_p"],
+                                 library_ms=r["lib"], bound_ms=r["bound"][n][0],
+                                 bound_by=r["bound"][n][1],
+                                 err={k: v for k, v in r["err"].items()
+                                      if (k == "dq") == (n == "dq")})
+                            for r in distill],
+            distill_ptxas={k: v for k, v in ptx.items()
+                           if k.startswith(f"bwd_{n}_")})
     t = timed["ms"]
     lib = ("F.scaled_dot_product_attention backward with the (S, S) bf16 "
            "bias built beforehand: dq, dk and dv together, no bias gradient; "
@@ -1608,6 +1741,11 @@ BUS_OBJECTS = [
 ]
 # the shapes' own mirror: x → −x in the asset frame
 BUS_MIRROR = (-1.0, 1.0, 1.0)
+# phase 8's render size on the bus: the default 768 cut to 576, which
+# takes the dense z-buffer's ~68 s down by ~40%, for the script's time
+# limit; 576 × 768 and 576² stay whole 64-pixel tiles, which the binned
+# z-buffer against the dense one needs
+BUS_RENDER = 576
 
 
 def _yaw_matrix(yaw):
@@ -2559,7 +2697,8 @@ def bus8_main(main, spy8, stages8, timings):
     if views[0][5] < 0.3:
         bad.append(f"cam1 covers {views[0][5]:.1%} of its pixels (≥ 30%)")
     load, cam1, cam2, debug = stages8 or (float("nan"),) * 4
-    log(f"bus phase 8 (render_resolution 768, the bus's HDRI): phase 8 "
+    log(f"bus phase 8 (render_resolution {BUS_RENDER}, the bus's HDRI): "
+        f"phase 8 "
         f"{timings[8]:.2f} s (load {load:.3f}, cam1 {cam1:.3f}, cam2 "
         f"{cam2:.3f}, debug {debug:.3f} s); "
         + "; ".join(f"{tag} {hw[0]}×{hw[1]}, {nf} faces: {p.path} (kmax "
@@ -2812,7 +2951,7 @@ def phase_bus(results):
     torch.cuda.synchronize()
     timings, stages, stages7, stages8 = _bus_phases(default_config(
         str(main / "output"), write_fit_gifs=False,
-        GT_scene=str(main / "gt_scene.glb"),
+        render_resolution=BUS_RENDER, GT_scene=str(main / "gt_scene.glb"),
         input_image=str(main / "input.png"),
         hdri_path=str(main / "sky.hdr")), spy, (5, 6, 7, 8, 9), spies, spy8)
     counts = dict(kernels.LAUNCHES)
@@ -2918,10 +3057,12 @@ def phase_bus(results):
 
 # phase_texture: phase 3's texture paths at full width on one of the
 # meshes phase_assets wrote, decimated to the reference's
-# remesh_target_num_faces (its 256³ meshes have ~3.3 M faces); a
+# remesh_target_num_faces (its 256³ meshes have ~3.3 M faces), cut to
+# half of its 50,000 faces (the dense z-buffer renders and bakes, ~73% of
+# the texture runs, go with the faces) for the script's time limit; a
 # 1,000-face decimation for the atlas on the card against the CPU, whose
 # plain z-buffer tests every pixel against every face (2,000 took 12.1 s)
-TEXTURE_FACES = 50_000
+TEXTURE_FACES = 25_000
 TEXTURE_CHECK_FACES = 1_000
 # the CLI runs (one object, the tiny texture model at the JAX CLI's
 # texgen_resolution 64, 4 steps): the generator at 10 steps and a 128³
@@ -6939,6 +7080,423 @@ def phase_upscale_edit(results, sam):
         f"after the runs: {held}")
     log(f"phase_upscale_edit: {time.perf_counter() - t_phase:.1f} s")
 
+# ---------------------------------------------------------------------------
+# the distillation trainers (phase_distill)
+
+# the four small runners at their scripts' defaults (full width)
+DISTILL_RUNS = ("detector", "matting", "saliency", "depth")
+# the shape runner at DistillConfig.small()'s widths, cut: 256 of 2048
+# shapes, 100 of 3000 autoencoder and 100 of 5000 flow steps, eval on 4
+# of 16 shapes
+SHAPE_CUT = dict(n_shapes=256, vae_steps=100, flow_steps=100, batch=32,
+                 seg=25, eval_shapes=4, eval_steps=25, eval_resolution=64)
+# card (bf16 compute, f32 weights) against the CPU's f32 after one
+# training step from the same weights and batch (ROADMAP Queue 3 af's
+# rule): loss within 5e-2 relative; gradients and updated weights by the
+# mean error over the CPU's largest |value|, 1.5e-2
+DISTILL_LOSS_ERR = 5e-2
+DISTILL_MEAN_ERR = 1.5e-2
+
+
+@contextlib.contextmanager
+def counting_flash_instances():
+    """Within the block, the launches of the flash forward, dq and dkv
+    wrappers by (kernel, head dim) in the yielded Counter; the wrappers are
+    restored after."""
+    from regen3d_tpu_torch.ops import attention as att
+
+    counts = collections.Counter()
+    saved = (att._flash_fwd, att.flash_bwd_dq, att.flash_bwd_dkv)
+
+    def wrap(fn, name):
+        def counted(q, *args):
+            counts[(name, q.shape[-1])] += 1
+            return fn(q, *args)
+        return counted
+
+    att._flash_fwd = wrap(saved[0], "fwd")
+    att.flash_bwd_dq = wrap(saved[1], "dq")
+    att.flash_bwd_dkv = wrap(saved[2], "dkv")
+    try:
+        yield counts
+    finally:
+        att._flash_fwd, att.flash_bwd_dq, att.flash_bwd_dkv = saved
+
+
+def distill_child(kind, root):
+    """The body of one distill run's process (distill_runs): the runner
+    through the CLI's function at its script's defaults (the shape runner
+    cut, SHAPE_CUT, then eval_generator on 4 held-out shapes), its launch
+    counts zeroed at its start and read at its end, its spans, peak memory
+    and flash launches by (kernel, D), written as root/<kind>.json. The
+    detector and saliency nets are written to root/<kind>_unsaved where the
+    runner refused to save them, for phase 1."""
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch import distill, kernels
+    from regen3d_tpu_torch.utils import profiling
+
+    root = Path(root)
+    kernels.reset_counts()
+    profiling.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting_flash_instances() as inst:
+        if kind == "shape":
+            from regen3d_tpu_torch.pipeline import shape_distill as sd
+
+            c = SHAPE_CUT
+            gen, out = sd.distill_shape(
+                sd.DistillConfig.small(), n_shapes=c["n_shapes"],
+                vae_steps=c["vae_steps"], flow_steps=c["flow_steps"],
+                batch=c["batch"], seg=c["seg"], log_every=0)
+            out["train_s"] = time.perf_counter() - t0
+            out["eval"] = sd.eval_generator(
+                gen, np.random.default_rng(10_000),
+                n_shapes=c["eval_shapes"], num_steps=c["eval_steps"],
+                resolution=c["eval_resolution"])
+            out["finite"] = all(bool(torch.isfinite(p).all()) for m in (
+                gen.cond, gen.dit, gen.decoder) for p in m.parameters())
+        else:
+            out = distill.RUNNERS[kind](distill.parse(
+                [kind, "--out", str(root / kind)]))
+            net = out.pop("model")
+            out["losses"] = np.asarray(out["losses"]).tolist()
+            out["finite"] = all(bool(torch.isfinite(p).all())
+                                for p in net.parameters())
+            if kind in ("detector", "saliency") and not out["saved"]:
+                from regen3d_tpu_torch.pipeline import (
+                    detector_distill,
+                    saliency_distill,
+                )
+
+                save = (detector_distill.save_detector_checkpoint
+                        if kind == "detector"
+                        else saliency_distill.save_saliency_checkpoint)
+                save(str(root / f"{kind}_unsaved"), net)
+    torch.cuda.synchronize()
+    out.update(
+        wall_s=time.perf_counter() - t0,
+        launches=dict(kernels.LAUNCHES),
+        flash=[[k, d, n] for (k, d), n in sorted(inst.items())],
+        host_spans={n: tot for n, _, tot, _ in profiling.span_summary()},
+        device_spans={n: mean for n, _, _, mean in
+                      profiling.device_span_summary()},
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    (root / f"{kind}.json").write_text(json.dumps(out))
+
+
+def distill_runs(results, root):
+    """The four small runners at their scripts' defaults and the cut shape
+    runner, at once, each in a process of its own (distill_child; the
+    runners are bound by the host, which one interpreter cannot share
+    among them; their batches are drawn in worker processes of their own;
+    the card is idle most of each step). Per runner: s a step (host spans;
+    CUDA-event device spans, idle time included), the flash launches a step
+    by (kernel, D) (the held-out eval's forwards included), the first- and
+    last-20 mean loss, the held-out metric against the fallback (reported,
+    not gated), its peak memory. Gated on falling losses and finite losses
+    and weights. The launch counts are each process's over its run, summed
+    into results["distill_launches"]."""
+    import numpy as np
+
+    kinds = DISTILL_RUNS + ("shape",)
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for kind in kinds:
+            code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                    f"import chip_smoke; chip_smoke.distill_child("
+                    f"{kind!r}, {str(root)!r})")
+            procs[kind] = subprocess.Popen(
+                [sys.executable, "-c", code], cwd=str(ROOT),
+                stdout=open(root / f"{kind}.log", "w"),
+                stderr=subprocess.STDOUT)
+        codes = {k: p.wait(timeout=900) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(codes.values()):
+        tails = {k: (root / f"{k}.log").read_text()[-1500:]
+                 for k, c in codes.items() if c}
+        raise AssertionError(f"distill runs failed: {codes} {tails}")
+    outs = {k: json.loads((root / f"{k}.json").read_text()) for k in kinds}
+    total = collections.Counter()
+    for out in outs.values():
+        total.update(out["launches"])
+    results["distill_launches"] = dict(total)
+
+    def per_step(out, steps):
+        return {f"{k}:D{d}": round(n / steps, 2) for k, d, n in out["flash"]}
+
+    rows = {}
+    for kind in DISTILL_RUNS:
+        out = outs[kind]
+        host, dev = out["host_spans"], out["device_spans"]
+        losses = np.asarray(out["losses"])
+        steps = len(losses)
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        rows[kind] = dict(
+            steps=steps, wall_s=out["wall_s"],
+            host_s_per_step=(host[f"{kind}.step"] + host[f"{kind}.data"])
+            / steps, host_data_wait_s_per_step=host[f"{kind}.data"] / steps,
+            device_s_per_step=dev.get(f"{kind}.step"),
+            train_s=host[f"distill.{kind}.train"],
+            eval_s=host[f"distill.{kind}.eval"], peak_gib=out["peak_gib"],
+            flash_launches_per_step=per_step(out, steps),
+            loss_first20=first, loss_last20=last, metric=out["metric"],
+            net=out["net"], fallback=out["fallback"],
+            beats_fallback=bool(out["beats"]), saved=bool(out["saved"]))
+        log(f"distill {kind}: {rows[kind]}")
+        if not (np.isfinite(losses).all() and out["finite"]):
+            raise AssertionError(f"distill {kind}: a loss or weight not "
+                                 f"finite")
+        if not last < first:
+            raise AssertionError(f"distill {kind}: the loss did not fall "
+                                 f"({first:.4f} → {last:.4f})")
+    out = outs["shape"]
+    host, dev = out["host_spans"], out["device_spans"]
+    c = SHAPE_CUT
+    rows["shape"] = dict(
+        cut=c, host_s_per_step={k: (host[f"{k}.step"] + host[f"{k}.data"])
+                                / c[f"{k}_steps"] for k in ("vae", "flow")},
+        device_s_per_step={k: dev.get(f"{k}.step") for k in ("vae", "flow")},
+        flash_launches_per_step=per_step(out, c["vae_steps"]
+                                         + c["flow_steps"]),
+        **{k: v for k, v in out.items() if k not in (
+            "launches", "flash", "host_spans", "device_spans")})
+    log(f"distill shape (cut): {rows['shape']}")
+    vals = [out[k] for k in ("vae_loss_final", "flow_loss_final")] + \
+        list(out["eval"].values())
+    if not (out["finite"] and all(np.isfinite(v) for v in vals)):
+        raise AssertionError(f"distill shape: not finite {out}")
+    if not (out["vae_loss_final"] < out["vae_loss_first"]
+            and out["flow_loss_final"] < out["flow_loss_first"]):
+        raise AssertionError(f"distill shape: a loss did not fall {out}")
+    log(f"distill runs at once, five processes: {wall:.1f} s; launches "
+        f"{results['distill_launches']}")
+    return rows, dict(wall_s=wall)
+
+
+def distill_card_vs_cpu():
+    """One training step of each micro trainer on the card (bf16 compute,
+    f32 weights: the trainers' layout) and on the CPU (f32), from the same
+    weights and batch: the losses, every gradient and the updated weights,
+    under DISTILL_LOSS_ERR and DISTILL_MEAN_ERR. The detector and saliency
+    net at distill_config(32) / small_config(32) run D = 24 and 12 on the
+    card, forward and backward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from regen3d_tpu_torch.models import depth_anything as mda
+    from regen3d_tpu_torch.models import detector as mdet
+    from regen3d_tpu_torch.models import dit as mdit
+    from regen3d_tpu_torch.models import saliency as msal
+    from regen3d_tpu_torch.models import unet as munet
+    from regen3d_tpu_torch.parallel import train as tr
+    from regen3d_tpu_torch.pipeline import depth_distill as dd
+    from regen3d_tpu_torch.pipeline import detector_distill as det
+    from regen3d_tpu_torch.pipeline import matting as mat
+    from regen3d_tpu_torch.pipeline import saliency_distill as sal
+    from regen3d_tpu_torch.pipeline import shape_distill as sh
+    from regen3d_tpu_torch.pipeline.phase3_assets import init_flax_style_
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(det.tokenize_bytes(det.VOCAB, 16)).long()
+    micro = sh.DistillConfig.micro()
+
+    def models(dev, dt):
+        """{name: (modules, loss(modules, batch))} computing in ``dt``."""
+        dcfg = dataclasses.replace(det.distill_config(32), dtype=dt)
+        scfg = dataclasses.replace(sal.small_config(32), dtype=dt)
+        acfg = dataclasses.replace(dd.micro_config(28), dtype=dt)
+        m = micro.with_dtype(dt)
+        kw = dict(device=dev, param_dtype=f32)
+        return {
+            # base 16: heads of 16 at the attention level (the backward
+            # kernels take D ≥ 12)
+            "matting": ([munet.MattingUNet(base=16, dtype=dt, **kw)],
+                        lambda ms, b: mat.matting_loss(ms[0], *b)),
+            "saliency": ([msal.SaliencyTransformer(scfg, **kw)],
+                         lambda ms, b: sal.saliency_loss(ms[0], *b)),
+            "detector": ([mdet.OpenVocabDetector(dcfg, **kw)],
+                         lambda ms, b: det.detection_loss(
+                             ms[0], b[0], tokens.to(dev), *b[1:])[0]),
+            "depth": ([mda.DepthAnything(acfg, **kw)],
+                      lambda ms, b: dd.depth_loss(ms[0], *b)),
+            "vae": ([sh.ShapeEncoder(m.vae, device=dev),
+                     sh.ShapeDecoder(m.vae, device=dev)],
+                    lambda ms, b: sh.vae_loss(ms[0], ms[1], *b)),
+            "flow": ([m.cond_encoder(dev), mdit.ShapeDiT(m.dit, device=dev)],
+                     lambda ms, b: sh.flow_loss(ms[0], ms[1], b[0], b[1],
+                                                None, draws=b[2:])),
+        }
+
+    surf = rng.uniform(-1, 1, (2, 64, 3)).astype(np.float32)
+    batches = {
+        "matting": mat.synth_matting_batch(rng, 2, 32),
+        "saliency": sal.synth_saliency_batch(rng, 2, 32),
+        "detector": det.synth_detection_batch(rng, 2, 32),
+        "depth": dd.synth_depth_batch(rng, 2, 28, "cpu"),
+        "vae": (surf, surf[:, :32] * 1.1, rng.normal(0, 0.1, (2, 32))
+                .astype(np.float32)),
+        "flow": (rng.random((2, 32, 32, 4)).astype(np.float32),
+                 rng.normal(size=(2, 16, 8)).astype(np.float32),
+                 rng.random(2).astype(np.float32),
+                 rng.normal(size=(2, 16, 8)).astype(np.float32),
+                 np.asarray([False, True])),
+    }
+    cpu, card = models("cpu", f32), models("cuda", bf16)
+    gen = torch.Generator().manual_seed(4)
+    out = {}
+    for name, (mods, loss_fn) in cpu.items():
+        for mod in mods:
+            if name == "flow" and isinstance(mod, mdit.ShapeDiT):
+                mdit.init_flax_style_(mod, gen)
+                mdit.draw_zero_init_leaves_(mod, gen)   # Queue 3 m
+            elif name == "matting":
+                munet.init_flax_style_(mod, gen)
+                munet.draw_zero_init_leaves_(mod, gen)
+            else:
+                init_flax_style_(mod, gen)
+        for a, b in zip(mods, card[name][0]):
+            b.load_state_dict(a.state_dict())
+        res = {}
+        for dev, (ms, fn) in (("cpu", (mods, loss_fn)),
+                              ("cuda", card[name])):
+            batch = [torch.from_numpy(np.asarray(x)).to(dev)
+                     for x in batches[name]]
+            params = [p for m in ms for p in m.parameters()]
+            opt = tr.OptaxAdamW(params, tr.cosine_decay_schedule(1e-3, 2),
+                                b1=0.9, b2=0.95, weight_decay=1e-4)
+            opt.zero_grad()
+            loss = fn(ms, batch)
+            loss.backward()
+            grads = torch.cat([(p.grad if p.grad is not None else
+                                torch.zeros_like(p)).float().reshape(-1)
+                               .cpu() for p in params])
+            opt.step()
+            res[dev] = (float(loss.detach()), grads, torch.cat(
+                [p.detach().reshape(-1).cpu() for p in params]))
+        (lc, gc, pc), (lg, gg, pg) = res["cpu"], res["cuda"]
+        errs = dict(loss=abs(lg - lc) / max(abs(lc), 1e-12),
+                    grad_mean=float((gg - gc).abs().mean()
+                                    / gc.abs().max()),
+                    weight_mean=float((pg - pc).abs().mean()
+                                      / pc.abs().max()))
+        out[name] = errs
+        if not (np.isfinite(lg) and bool(torch.isfinite(gg).all())
+                and errs["loss"] <= DISTILL_LOSS_ERR
+                and errs["grad_mean"] <= DISTILL_MEAN_ERR
+                and errs["weight_mean"] <= DISTILL_MEAN_ERR):
+            raise AssertionError(f"distill {name}: card against CPU {errs}")
+    return out
+
+
+def phase_distill(results, sam):
+    """The distillation trainers on the card (ROADMAP Queue 1 item 8):
+    one training step of each micro trainer against the CPU's f32; the four
+    small runners through the CLI's functions at their scripts' defaults
+    (detector 600 steps at 128², matting 600 at 128² with batch 16,
+    saliency 300 at 96², depth 400 at 112²) and the shape runner cut
+    (SHAPE_CUT), at once in processes of their own (distill_runs), each
+    gated on a falling loss
+    and finite values, its beat-the-fallback verdict reported; then phase 1 from the detector and saliency
+    checkpoints those runs trained (distill_config(), small_config():
+    heads of 24 and 12, which the parent's kernels refused) through
+    run_phases(cfg, [1]) and, for the saliency points, phase1_segmentation
+    .run with SAM-H; every flash shape of those runs held against the plain
+    version."""
+    import shutil
+
+    import torch
+
+    from regen3d_tpu_torch import kernels, orchestrator
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.pipeline import phase1_segmentation as p1
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    checks = distill_card_vs_cpu()
+    log(f"distill trainers, one step card vs CPU f32 "
+        f"({time.perf_counter() - t0:.1f} s; loss rel. tol "
+        f"{DISTILL_LOSS_ERR}, mean/max tol {DISTILL_MEAN_ERR}): {checks}")
+    root = ROOT / "build" / "distill"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rows, together = distill_runs(results, root)
+
+    # phase 1 from the trained detector and saliency net, through the keys
+    # (where a runner refused to save, its child wrote the net beside)
+    keys = {f"{k}_checkpoint": str(root / (k if rows[k]["saved"]
+                                           else f"{k}_unsaved"))
+            for k in ("detector", "saliency")}
+    bus_input = ROOT / "build" / "bus" / "bus" / "input.png"
+    over = dict(use_points=True, point_method="saliency",
+                points_per_object=1, **keys)
+    shapes = collections.Counter()
+    t0 = time.perf_counter()
+    for threshold in (0.25, 0.1, 0.02, 0.0):
+        shutil.rmtree(root / "p1", ignore_errors=True)
+        cfg = default_config(str(root / "p1" / "output"),
+                             input_image=str(bus_input), threshold=threshold,
+                             **over)
+        kernels.reset_counts()
+        with recording_flash_shapes() as got:
+            timings = orchestrator.run_phases(cfg, [1], device="cuda")
+        results["distill_phase1_launches"] = dict(kernels.LAUNCHES)
+        shapes.update(got)
+        stems = Artifacts(cfg).list_findings()
+        if stems:
+            break
+    t_cli = time.perf_counter() - t0
+    cfg_sam = default_config(str(root / "p1sam" / "output"),
+                             input_image=str(bus_input), threshold=threshold,
+                             **over)
+    kernels.reset_counts()
+    with recording_flash_shapes() as got:
+        t0 = time.perf_counter()
+        found = p1.run(cfg_sam, sam=sam, device="cuda")
+        t_sam = time.perf_counter() - t0
+    results["distill_phase1_sam_launches"] = dict(kernels.LAUNCHES)
+    shapes.update(got)
+    dims = {s[-1] for s in shapes}
+    log(f"phase 1 from the distilled checkpoints {keys} (threshold "
+        f"{threshold}): run_phases(cfg, [1]) {timings} ({t_cli:.1f} s with "
+        f"the thresholds tried), {len(stems)} findings; "
+        f"phase1_segmentation.run with SAM-H's saliency points {t_sam:.2f} "
+        f"s, {len(found)} findings; flash shapes {dict(shapes)}")
+    if not {12, 24} <= dims:
+        raise AssertionError(f"phase 1 from the distilled checkpoints ran "
+                             f"the flash forward at head dims {dims}, not "
+                             f"12 and 24")
+    gen_t = torch.Generator(device="cuda").manual_seed(47)
+    held = []
+    for shape in sorted(set(shapes).difference(FLASH_SHAPES)):
+        d = shape[-1]
+        r = (padded_check(shape, gen_t, -(-d // 16) * 16)
+             if d % 16 else fwd_case(shape, gen_t, timed=shape[2] >= 256))
+        held.append(dict(shape=shape, launches=shapes[shape], err=r["err"],
+                         err_lse=r["err_lse"], **r.get("ms", {})))
+    f = results["flash_fwd"]
+    for r in held:
+        f["max_abs_err"] = max(f["max_abs_err"], r["err"])
+        f["max_abs_err_lse"] = max(f["max_abs_err_lse"], r["err_lse"])
+    f["distill_phase1_shapes"] = held
+    results["distill"] = dict(card_vs_cpu=checks, runs=rows, **together,
+                              phase1=dict(threshold=threshold,
+                                          timings=timings, cli_s=t_cli,
+                                          sam_s=t_sam, findings=len(found)))
+    log(f"phase_distill: {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     import torch
@@ -6977,6 +7535,7 @@ def main() -> int:
     timed(phase_segment, results, sam)
     timed(phase_checkpoints, results, sam)
     timed(phase_upscale_edit, results, sam)
+    timed(phase_distill, results, sam)
     del sam
     timed(phase_alternates, results)
     timed(phase_dit, results)

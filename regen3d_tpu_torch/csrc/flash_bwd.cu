@@ -87,7 +87,7 @@
 // tc_tiles.cuh, shared with the forward kernel (flash_fwd.cu).
 //
 // Shared memory passes 48 KB, so the launches opt in with
-// cudaFuncSetAttribute. Head dims: 16, 32, 64 and 128 without a bias, 80
+// cudaFuncSetAttribute. Head dims: 12, 16, 24, 32, 64 and 128 without a bias, 80
 // (SAM-H) with the grid bias: those of the forward kernel.
 
 #include "tc_tiles.cuh"
@@ -103,12 +103,13 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int sq, int sk, float scale) {
-  constexpr int BM = TC_ROWS, BN = Streamed<D>::ROWS;
+  constexpr int W = DC<D>;
+  constexpr int BM = TC_ROWS, BN = Streamed<W>::ROWS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][D]
-  bf16* gs = qs + BM * D;                        // [BM][D]
-  bf16* ks = gs + BM * D;                        // [2][BN][D] ring
-  bf16* vs = ks + 2 * BN * D;                    // [2][BN][D] ring
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][W]
+  bf16* gs = qs + BM * W;                        // [BM][W]
+  bf16* ks = gs + BM * W;                        // [2][BN][W] ring
+  bf16* vs = ks + 2 * BN * W;                    // [2][BN][W] ring
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -118,10 +119,10 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (size_t)bh * sk * D;
   const bf16* vb = v + (size_t)bh * sk * D;
 
-  load_tile<D, BM>(qs, qb, q0, sq, tid);
-  load_tile<D, BM>(gs, gb, q0, sq, tid);
-  load_tile<D, BN>(ks, kb, 0, sk, tid);
-  load_tile<D, BN>(vs, vb, 0, sk, tid);
+  load_tile<W, BM, D>(qs, qb, q0, sq, tid);
+  load_tile<W, BM, D>(gs, gb, q0, sq, tid);
+  load_tile<W, BN, D>(ks, kb, 0, sk, tid);
+  load_tile<W, BN, D>(vs, vb, 0, sk, tid);
   cp_async_commit();
 
   // this lane's two rows of the warp's 16: w0 + g4 and w0 + g4 + 8
@@ -135,25 +136,25 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float d_hi = r_hi < sq ? db[r_hi] : 0.f;
   const float sl2 = scale * LOG2E;
 
-  float acc[D / 8][4];
+  float acc[W / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < W / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   const int nt = (sk + BN - 1) / BN;
   for (int t = 0; t < nt; ++t) {
     const int st = t & 1;
     if (t + 1 < nt) {  // the next K/V tile into the other stage
-      load_tile<D, BN>(ks + (st ^ 1) * BN * D, kb, (t + 1) * BN, sk, tid);
-      load_tile<D, BN>(vs + (st ^ 1) * BN * D, vb, (t + 1) * BN, sk, tid);
+      load_tile<W, BN, D>(ks + (st ^ 1) * BN * W, kb, (t + 1) * BN, sk, tid);
+      load_tile<W, BN, D>(vs + (st ^ 1) * BN * W, vb, (t + 1) * BN, sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // every thread's copies of this stage are in
-    const bf16* kt = ks + st * BN * D;
-    const bf16* vt = vs + st * BN * D;
+    const bf16* kt = ks + st * BN * W;
+    const bf16* vt = vs + st * BN * W;
 
     // s = q·kᵀ and dp = g·vᵀ, 16 × BN per warp
     float s[BN / 8][4], dp[BN / 8][4];
@@ -162,15 +163,15 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
+    for (int kk = 0; kk < W; kk += 16) {
       uint32_t qa[4], ga[4];
-      load_a<D>(qa, qs, w0, kk, lane);
-      load_a<D>(ga, gs, w0, kk, lane);
+      load_a<W>(qa, qs, w0, kk, lane);
+      load_a<W>(ga, gs, w0, kk, lane);
 #pragma unroll
       for (int n = 0; n < BN; n += 16) {
         uint32_t kf[4], vf[4];
-        load_b_nk<D>(kf, kt, n, kk, lane);
-        load_b_nk<D>(vf, vt, n, kk, lane);
+        load_b_nk<W>(kf, kt, n, kk, lane);
+        load_b_nk<W>(vf, vt, n, kk, lane);
         mma(s[n / 8], qa, kf[0], kf[1]);
         mma(s[n / 8 + 1], qa, kf[2], kf[3]);
         mma(dp[n / 8], ga, vf[0], vf[1]);
@@ -199,9 +200,9 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < BN / 16; ++m) {
 #pragma unroll
-      for (int n = 0; n < D; n += 16) {
+      for (int n = 0; n < W; n += 16) {
         uint32_t kf[4];
-        load_b_kn<D>(kf, kt, m * 16, n, lane);
+        load_b_kn<W>(kf, kt, m * 16, n, lane);
         mma(acc[n / 8], dsa[m], kf[0], kf[1]);
         mma(acc[n / 8 + 1], dsa[m], kf[2], kf[3]);
       }
@@ -209,7 +210,8 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is refilled by tile t + 2
   }
 
-  store_rows<D>(acc, qs, w0, dq + (size_t)bh * sq * D, q0 + w0, sq, lane);
+  store_rows<W, D>(acc, qs, w0, dq + (size_t)bh * sq * D, q0 + w0, sq,
+                   lane);
 }
 
 template <int D>
@@ -219,13 +221,14 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
                float scale) {
-  constexpr int BM = TC_ROWS, BN = Streamed<D>::ROWS;
+  constexpr int W = DC<D>;
+  constexpr int BM = TC_ROWS, BN = Streamed<W>::ROWS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BM][D]
-  bf16* vs = ks + BM * D;                        // [BM][D]
-  bf16* qs = vs + BM * D;                        // [2][BN][D] ring
-  bf16* gs = qs + 2 * BN * D;                    // [2][BN][D] ring
-  float* ls = reinterpret_cast<float*>(gs + 2 * BN * D);  // [2][BN] lse
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BM][W]
+  bf16* vs = ks + BM * W;                        // [BM][W]
+  bf16* qs = vs + BM * W;                        // [2][BN][W] ring
+  bf16* gs = qs + 2 * BN * W;                    // [2][BN][W] ring
+  float* ls = reinterpret_cast<float*>(gs + 2 * BN * W);  // [2][BN] lse
   float* dls = ls + 2 * BN;                               // [2][BN] delta
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BM;
@@ -240,8 +243,8 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // one streamed tile: BN rows of Q and g, and their lse and delta
   auto load_q_tile = [&](int stage, int r0) {
-    load_tile<D, BN>(qs + stage * BN * D, qb, r0, sq, tid);
-    load_tile<D, BN>(gs + stage * BN * D, gb, r0, sq, tid);
+    load_tile<W, BN, D>(qs + stage * BN * W, qb, r0, sq, tid);
+    load_tile<W, BN, D>(gs + stage * BN * W, gb, r0, sq, tid);
     for (int i = tid; i < BN; i += TC_NT) {
       const bool in = r0 + i < sq;
       const int row = in ? r0 + i : 0;
@@ -250,17 +253,17 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  load_tile<D, BM>(ks, kb, k0, sk, tid);
-  load_tile<D, BM>(vs, vb, k0, sk, tid);
+  load_tile<W, BM, D>(ks, kb, k0, sk, tid);
+  load_tile<W, BM, D>(vs, vb, k0, sk, tid);
   load_q_tile(0, 0);
   cp_async_commit();
 
   const int w0 = warp * 16;  // this warp's 16 keys of the block's 64
   const float sl2 = scale * LOG2E;
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[W / 8][4], dva[W / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < W / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
 
@@ -275,8 +278,8 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();  // every thread's copies of this stage are in
-    const bf16* qt = qs + st * BN * D;
-    const bf16* gt = gs + st * BN * D;
+    const bf16* qt = qs + st * BN * W;
+    const bf16* gt = gs + st * BN * W;
     const float* lt = ls + st * BN;
     const float* dlt = dls + st * BN;
 
@@ -287,15 +290,15 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
+    for (int kk = 0; kk < W; kk += 16) {
       uint32_t ka[4], va[4];
-      load_a<D>(ka, ks, w0, kk, lane);
-      load_a<D>(va, vs, w0, kk, lane);
+      load_a<W>(ka, ks, w0, kk, lane);
+      load_a<W>(va, vs, w0, kk, lane);
 #pragma unroll
       for (int n = 0; n < BN; n += 16) {
         uint32_t qf[4], gf[4];
-        load_b_nk<D>(qf, qt, n, kk, lane);
-        load_b_nk<D>(gf, gt, n, kk, lane);
+        load_b_nk<W>(qf, qt, n, kk, lane);
+        load_b_nk<W>(gf, gt, n, kk, lane);
         mma(s[n / 8], ka, qf[0], qf[1]);
         mma(s[n / 8 + 1], ka, qf[2], qf[3]);
         mma(dp[n / 8], va, gf[0], gf[1]);
@@ -328,10 +331,10 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < BN / 16; ++m) {
 #pragma unroll
-      for (int n = 0; n < D; n += 16) {
+      for (int n = 0; n < W; n += 16) {
         uint32_t gf[4], qf[4];
-        load_b_kn<D>(gf, gt, m * 16, n, lane);
-        load_b_kn<D>(qf, qt, m * 16, n, lane);
+        load_b_kn<W>(gf, gt, m * 16, n, lane);
+        load_b_kn<W>(qf, qt, m * 16, n, lane);
         mma(dva[n / 8], pa[m], gf[0], gf[1]);
         mma(dva[n / 8 + 1], pa[m], gf[2], gf[3]);
         mma(dka[n / 8], dsa[m], qf[0], qf[1]);
@@ -342,8 +345,8 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const size_t off = (size_t)bh * sk * D;
-  store_rows<D>(dka, ks, w0, dk + off, k0 + w0, sk, lane);
-  store_rows<D>(dva, vs, w0, dv + off, k0 + w0, sk, lane);
+  store_rows<W, D>(dka, ks, w0, dk + off, k0 + w0, sk, lane);
+  store_rows<W, D>(dva, vs, w0, dv + off, k0 + w0, sk, lane);
 }
 
 template <int D>
@@ -351,8 +354,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* delta,
                       void* dq, int bh, int sq, int sk, float scale,
                       cudaStream_t stream) {
-  constexpr int BN = Streamed<D>::ROWS;
-  const size_t smem = sizeof(bf16) * (2 * TC_ROWS + 4 * BN) * D;
+  constexpr int W = DC<D>, BN = Streamed<W>::ROWS;
+  const size_t smem = sizeof(bf16) * (2 * TC_ROWS + 4 * BN) * W;
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -371,8 +374,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int sq, int sk, float scale,
                        cudaStream_t stream) {
-  constexpr int BN = Streamed<D>::ROWS;
-  const size_t smem = sizeof(bf16) * (2 * TC_ROWS + 4 * BN) * D +
+  constexpr int W = DC<D>, BN = Streamed<W>::ROWS;
+  const size_t smem = sizeof(bf16) * (2 * TC_ROWS + 4 * BN) * W +
                       sizeof(float) * 4 * BN;
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -889,7 +892,9 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 12: return (int)launch_dq<12>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 16: return (int)launch_dq<16>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
+    case 24: return (int)launch_dq<24>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 32: return (int)launch_dq<32>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 64: return (int)launch_dq<64>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 128: return (int)launch_dq<128>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
@@ -907,7 +912,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 12: return (int)launch_dkv<12>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 16: return (int)launch_dkv<16>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
+    case 24: return (int)launch_dkv<24>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 32: return (int)launch_dkv<32>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 64: return (int)launch_dkv<64>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 128: return (int)launch_dkv<128>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);

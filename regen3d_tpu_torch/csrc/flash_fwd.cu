@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a) on the tensor cores: plain
-// (head dims 4, 8, 16, 32, 64, 96, 128 and 512) and with SAM's factored
+// (head dims 4, 8, 12, 16, 24, 32, 64, 96, 128 and 512) and with SAM's factored
 // key-grid bias (D = 80). bf16 q, k, v and o; f32 bias factors; f32 row logsumexp in the
 // natural log, which the backward kernels (flash_bwd.cu) read.
 //
@@ -85,6 +85,15 @@
 //   load_tile), p·v skips the same second tile, and the store writes 8
 //   bytes a row, so it agrees bit for bit with the D = 8 and D = 16
 //   instances on zero-padded inputs.
+//   D = 12 (the distilled detector's text tower, 4 heads of 48) and D = 24
+//   (its image tower and the distilled saliency net, heads of 96 / 4 and
+//   48 / 2) run the same way at width 16 and 32: a D = 12 row is 24 bytes,
+//   only 8-byte aligned, so it comes as three 8-byte copies and one with no
+//   source bytes; a D = 24 row is 48 bytes, three 16-byte copies and one
+//   with none. The scale is 1/√D of the true D, p·v skips the last 8-column
+//   tile at D = 24 (at D = 12 half of it is live), and the store writes the
+//   first D columns only, so each agrees bit for bit with the width-16 or
+//   width-32 instance on zero-padded inputs.
 //
 // * D = 512 (the SD VAE's mid-block attention: one head of 512 over the
 //   64² latent grid) is its own kernel, fwd_wide_kernel. At D ≤ 128 a warp
@@ -128,10 +137,6 @@ constexpr int GRID_ANY = 2;   // grid bias, any (kh, kw) with kh·kw = Sk
 
 constexpr int FWD_BN = 64;    // keys of a warp's tile
 constexpr float LN2 = 0.6931471805599453f;
-
-// the width a head dim D is computed at: mma.sync's depth is 16
-template <int D>
-constexpr int DC = D < 16 ? 16 : D;
 
 // The block's tiling at head dim D, SPLIT: the keys split across the warps.
 template <int D, bool SPLIT>
@@ -351,7 +356,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // o += p·v: depth = the tile's keys, columns = D; each V fragment feeds
-    // MT products (at D = 8 the second 8-column tile, all zeros, is skipped)
+    // MT products (an 8-column tile of o past D, all zeros, is skipped)
 #pragma unroll
     for (int i = 0; i < BN / 16; ++i) {
 #pragma unroll
@@ -703,7 +708,9 @@ cudaError_t launch_plain(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int sq, int sk, float scale,
                          cudaStream_t stream) {
   const GridBias none{nullptr, nullptr, nullptr, nullptr, 0, 0, false};
-  if constexpr (D <= 64) {
+  // D = 24's split instance spills (12 bytes at 128 registers, ptxas), and
+  // no path gives it a short query set: it runs unsplit
+  if constexpr (D <= 64 && D != 24) {
     if (sq <= 16 && sk > FWD_BN)
       return launch_fwd<D, NO_BIAS, true>(q, k, v, none, o, lse, bh, sq, sk,
                                           scale, stream);
@@ -725,7 +732,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   switch (d) {
     case 4: return (int)launch_plain<4>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 8: return (int)launch_plain<8>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case 12: return (int)launch_plain<12>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 16: return (int)launch_plain<16>(q, k, v, o, lse, bh, sq, sk, scale, st);
+    case 24: return (int)launch_plain<24>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 32: return (int)launch_plain<32>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 64: return (int)launch_plain<64>(q, k, v, o, lse, bh, sq, sk, scale, st);
     case 96: return (int)launch_plain<96>(q, k, v, o, lse, bh, sq, sk, scale, st);

@@ -136,18 +136,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the width a head dim D is computed at: mma.sync's depth is 16, so D is
+// rounded up to a multiple of 16 (4, 8, 12 → 16; 24 → 32)
+template <int D>
+constexpr int DC = (D + 15) / 16 * 16;
+
 // Copy rows [r0, r0 + ROWS) of a [n][DG] bf16 array into a tile laid out
 // by Tile<D>; rows at or past n are zero-filled, and so are the columns at
-// or past DG (DG < D: a head dim below the tensor cores' depth of 16,
-// widened in shared memory only). At DG = 4 a row is half a 16-byte chunk,
-// 8-byte aligned: two 8-byte copies a chunk, the second with no source bytes.
+// or past DG (DG < D: a head dim that is not a multiple of 16, widened in
+// shared memory only). A row of DG values starts 16-byte aligned when DG
+// is a multiple of 8 (16-byte copies, whole chunks past DG with no source
+// bytes); at DG = 4 and 12 it is only 8-byte aligned, so each 16-byte chunk
+// is two 8-byte copies, a half at or past DG with no source bytes.
 template <int D, int ROWS, int DG = D>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
                                           int n, int tid) {
   constexpr int CPR = D / 8;
   static_assert(ROWS * CPR % TC_NT == 0, "whole chunks per thread");
-  static_assert((DG % 8 == 0 || DG == 4) && DG <= D,
-                "whole chunks, or half of one, of the tile's rows");
+  static_assert(DG % 4 == 0 && DG <= D, "whole 8-byte halves of chunks");
 #pragma unroll
   for (int it = 0; it < ROWS * CPR / TC_NT; ++it) {
     const int i = tid + it * TC_NT;
@@ -161,8 +167,9 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int r0,
     bf16* dst = tile + Tile<D>::off(r, c * 8);
     const bf16* from = src + (size_t)(in ? r0 + r : 0) * DG + col;
     if constexpr (DG % 8 != 0) {
+      const bool hi = in && c * 8 + 4 < DG;   // the chunk's second half
       cp_async8(dst, from, in);
-      cp_async8(dst + 4, from, false);
+      cp_async8(dst + 4, hi ? from + 4 : from, hi);
     } else {
       cp_async16(dst, from, in);
     }
@@ -195,7 +202,9 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile,
 
 // Write a warp's 16 × D f32 accumulators as bf16 into its rows r0.. of a
 // tile, then copy the first DG columns of those rows to dst ([n][DG]) rows
-// [g0, g0 + 16) below n with 16-byte stores (8-byte ones at DG = 4).
+// [g0, g0 + 16) below n with 16-byte stores (8-byte ones where DG is not a
+// multiple of 8, whose rows are only 8-byte aligned). Columns at or past
+// DG never leave the tile.
 template <int D, int DG = D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
                                            bf16* tile, int r0, bf16* dst,
@@ -217,9 +226,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
     const int i = lane + it * 32;
     const int r = i / CPR, c = i % CPR;
     if constexpr (DG % 8 != 0) {
-      if (g0 + r < n && c == 0)
-        *reinterpret_cast<uint2*>(dst + (size_t)(g0 + r) * DG) =
-            *reinterpret_cast<const uint2*>(tile + Tile<D>::off(r0 + r, 0));
+      if (g0 + r < n && c * 8 < DG) {
+        bf16* to = dst + (size_t)(g0 + r) * DG + c * 8;
+        const bf16* from = tile + Tile<D>::off(r0 + r, c * 8);
+        *reinterpret_cast<uint2*>(to) = *reinterpret_cast<const uint2*>(from);
+        if (c * 8 + 4 < DG)
+          *reinterpret_cast<uint2*>(to + 4) =
+              *reinterpret_cast<const uint2*>(from + 4);
+      }
     } else if (g0 + r < n && (DG == D || c < DG / 8)) {
       *reinterpret_cast<uint4*>(dst + (size_t)(g0 + r) * DG + c * 8) =
           *reinterpret_cast<const uint4*>(tile + Tile<D>::off(r0 + r, c * 8));

@@ -12,7 +12,8 @@ At ``DepthAnythingConfig.small()`` (518², patch 14) the trunk runs 1,370
 tokens in 6 heads of 64: the flash forward kernel at (1, 6, 1370, 1370,
 64), taps after blocks (2, 5, 8, 11). Dtypes as in the JAX module: the
 trunk and head in ``cfg.dtype`` (bf16 by default), the position table,
-the cls token, the taps' LayerNorm and ``output_conv2b`` in f32. Built on
+the cls token, the taps' LayerNorm and ``output_conv2b`` in f32; the
+weights stored in ``param_dtype`` where given (f32 for training). Built on
 the card unless ``device`` is given; names follow the flax tree.
 """
 
@@ -33,6 +34,7 @@ from regen3d_tpu_torch.models.layers import (
     ViTBlock,
     init_flax_layers_,
     resize_bilinear,
+    store_params_,
 )
 
 
@@ -92,7 +94,7 @@ class DepthAnything(nn.Module):
     """(B, H, W, 3) in [0, 1] → relative depth (B, H, W) ≥ 0, f32."""
 
     def __init__(self, cfg: DepthAnythingConfig = DepthAnythingConfig(),
-                 device="cuda"):
+                 device="cuda", param_dtype=None):
         super().__init__()
         self.cfg = c = cfg
         kw = dict(dtype=c.dtype, device=device)
@@ -119,6 +121,7 @@ class DepthAnything(nn.Module):
         self.output_conv1 = Conv(fe, fe // 2, 3, **kw)
         self.output_conv2a = Conv(fe // 2, 32, 3, **kw)
         self.output_conv2b = Conv(32, 1, 1, device=device)
+        store_params_(self, param_dtype)
 
     def forward(self, img):
         c = self.cfg

@@ -12,8 +12,10 @@ width 256 (4 heads of 64) over 24 bytes: the flash forward kernel runs at
 (1, 8, 2304, 2304, 64) and at (L labels, 4, 24, 24, 64). Numerics follow
 the JAX module's dtypes: the trunks in ``cfg.dtype`` (bf16 by default,
 which the kernel takes), the byte embedding, the towers' final LayerNorms
-and every head in f32. The module holds its own weights and is built on
-the card unless the caller passes ``device``; submodule names follow the
+and every head in f32. The module holds its own weights, stored in
+``param_dtype`` where given (f32 for training, as flax keeps them) and in
+each layer's compute dtype otherwise, and is built on the card unless the
+caller passes ``device``; submodule names follow the
 flax tree (``models/from_jax.py``).
 """
 
@@ -34,6 +36,7 @@ from regen3d_tpu_torch.models.layers import (
     init_flax_layers_,
     posemb_sincos_2d,
     resize_bilinear,
+    store_params_,
 )
 from regen3d_tpu_torch.pipeline.detection import BoundingBox, DetectionResult
 
@@ -118,7 +121,8 @@ class DetectorImageTower(nn.Module):
 
 
 class OpenVocabDetector(nn.Module):
-    def __init__(self, cfg: DetectorConfig = DetectorConfig(), device="cuda"):
+    def __init__(self, cfg: DetectorConfig = DetectorConfig(), device="cuda",
+                 param_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.image = DetectorImageTower(cfg, device=device)
@@ -127,10 +131,14 @@ class OpenVocabDetector(nn.Module):
         self.box_head = Dense(cfg.width, 4, device=device)
         self.obj_head = Dense(cfg.width, 1, device=device)
         self.logit_scale = nn.Parameter(torch.tensor(2.0, device=device))
+        store_params_(self, param_dtype)
 
-    def forward(self, img, tokens):
+    def forward(self, img, tokens, return_logits: bool = False):
         """img (B, S, S, 3) in [0, 1], tokens (L, T) → (scores (B, P, L),
-        boxes (B, P, 4) as (cx, cy, w, h) in [0, 1]), f32."""
+        boxes (B, P, 4) as (cx, cy, w, h) in [0, 1]), f32. With
+        ``return_logits`` (the distillation trainer's path), (sim (B, P, L),
+        obj (B, P, 1), boxes): the pre-sigmoid similarity and objectness
+        logits in place of the fused score, as the JAX module returns."""
         feats, (gh, gw) = self.image(img)
         z_img = _unit(self.patch_proj(feats))
         z_txt = self.text(tokens)
@@ -145,6 +153,8 @@ class OpenVocabDetector(nn.Module):
         raw = self.box_head(feats)
         cxcy = torch.sigmoid(raw[..., :2]) * 0.5 - 0.25 + grid[None]
         boxes = torch.cat([cxcy, torch.sigmoid(raw[..., 2:])], -1)
+        if return_logits:
+            return sim, obj, boxes
         return torch.sigmoid(sim) * torch.sigmoid(obj), boxes
 
     @torch.no_grad()

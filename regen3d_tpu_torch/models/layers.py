@@ -7,9 +7,11 @@ The modules follow flax's numerics, which the JAX package runs:
   ``dtype``: for inference storing the weights in bf16 is flax's own
   rounding, while training keeps flax's layout (``param_dtype`` f32, bf16
   compute), since bf16 keeps 8 significant bits and an AdamW update smaller
-  than 2⁻⁸ of a weight would round away. ``Conv`` computes in its weights'
-  dtype, or, given ``param_dtype``, stores them in it and computes in
-  ``dtype`` as ``Dense`` does;
+  than 2⁻⁸ of a weight would round away. ``Conv`` does the same, and
+  ``ConvTranspose`` casts its weights to its ``dtype`` for the product. A
+  whole model's weights move to another storage dtype with
+  ``store_params_``, which leaves every layer's compute dtype as it was
+  (the trained models' ``param_dtype``);
 * ``RMSNorm`` is flax's: eps 1e-6, f32 statistics and scale, output in
   ``dtype``;
 * ``LayerNorm`` uses eps 1e-6 (torch's default is 1e-5), computes in f32 with
@@ -54,9 +56,9 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """flax ``nn.Conv`` with ``SAME`` padding on NHWC tensors. With
-    ``param_dtype`` the weights are stored in it and cast to ``dtype`` for
-    the product, as flax does; without it they are stored in ``dtype``."""
+    """flax ``nn.Conv`` with ``SAME`` padding on NHWC tensors. The weights
+    are stored in ``param_dtype`` (default ``dtype``) and cast to ``dtype``
+    for the product, as flax does."""
 
     def __init__(self, c_in, c_out, kernel, stride=1, bias=True,
                  dtype=torch.float32, device="cuda", param_dtype=None):
@@ -65,10 +67,10 @@ class Conv(nn.Conv2d):
         pad = (kernel - 1) // 2 if stride == 1 else 0
         super().__init__(c_in, c_out, kernel, stride=stride, padding=pad,
                          bias=bias, dtype=param_dtype or dtype, device=device)
-        self.compute_dtype = dtype if param_dtype is not None else None
+        self.compute_dtype = dtype
 
     def forward(self, x):                       # (B, H, W, C)
-        dt = self.compute_dtype or self.weight.dtype
+        dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         x = x.to(dt).permute(0, 3, 1, 2)
         s = self.stride[0]
@@ -91,7 +93,8 @@ class ConvTranspose(nn.ConvTranspose2d):
     transposed convolution with padding k − 1 − pad_a then gives the same
     positions, its tail past ``stride``·n cropped (k = 3, stride 2). The
     weight holds torch's layout (in, out, k, k); ``models/from_jax.py``
-    mirrors the taps when it loads a flax kernel."""
+    mirrors the taps when it loads a flax kernel. It computes in ``dtype``,
+    whatever dtype its weights are stored in (``store_params_``)."""
 
     def __init__(self, c_in, c_out, kernel=2, stride=2, dtype=torch.float32,
                  device="cuda"):
@@ -100,11 +103,15 @@ class ConvTranspose(nn.ConvTranspose2d):
         super().__init__(c_in, c_out, kernel, stride=stride,
                          padding=kernel - 1 - pad_a, dtype=dtype,
                          device=device)
+        self.compute_dtype = dtype
 
     def forward(self, x):                       # (B, H, W, C)
         h, w = x.shape[1:3]
-        s = self.stride[0]
-        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        s, dt = self.stride[0], self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), b, self.stride,
+                               self.padding)
         return y[:, :, :h * s, :w * s].permute(0, 2, 3, 1)
 
 
@@ -125,6 +132,20 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.float(), (self.dim,), self.weight, self.bias,
                             LN_EPS).to(self.dtype)
+
+
+def store_params_(model: nn.Module, param_dtype) -> nn.Module:
+    """Store every floating parameter of ``model`` in ``param_dtype`` (a
+    no-op for None). The layers cast their weights to their own compute
+    dtype, and the norms, embeddings and tables compute in f32, so the
+    forward is unchanged up to the rounding of the stored values; with
+    ``param_dtype`` f32 the model trains as flax's ``param_dtype=f32``
+    split does."""
+    if param_dtype is not None:
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(param_dtype)
+    return model
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,

@@ -12,6 +12,7 @@ forward kernel runs at head dim 96 over 3,136 tokens (stride 4) and 784
 against the saliency token alone (Sk = 1), both at head dim 64. Dtypes as
 in the JAX module: everything in ``cfg.dtype`` (bf16 by default) but the
 saliency token (stored f32), the final ``out`` Dense and the resize (f32).
+The weights are stored in ``param_dtype`` where given (f32 for training).
 Built on the card unless ``device`` is given; names follow the flax tree.
 """
 
@@ -32,6 +33,7 @@ from regen3d_tpu_torch.models.layers import (
     init_flax_layers_,
     posemb_sincos_2d,
     resize_bilinear,
+    store_params_,
 )
 
 
@@ -78,7 +80,8 @@ class T2TStem(nn.Module):
 class SaliencyTransformer(nn.Module):
     """(B, H, W, 3) in [0, 1] → (B, H, W) saliency in [0, 1], f32."""
 
-    def __init__(self, cfg: SaliencyConfig = SaliencyConfig(), device="cuda"):
+    def __init__(self, cfg: SaliencyConfig = SaliencyConfig(), device="cuda",
+                 param_dtype=None):
         super().__init__()
         self.cfg = cfg
         c, half = cfg, cfg.width // 2
@@ -97,6 +100,7 @@ class SaliencyTransformer(nn.Module):
         self.up4 = ConvTranspose(half, half, 3, 2, **kw)
         self.skip4 = Dense(half, half, **kw)
         self.out = Dense(half, 1, device=device)
+        store_params_(self, param_dtype)
 
     def forward(self, img):
         c = self.cfg

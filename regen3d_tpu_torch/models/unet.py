@@ -30,6 +30,7 @@ from regen3d_tpu_torch.models.layers import (
     Dense,
     init_flax_layers_,
     linspace_f32,
+    store_params_,
     timestep_embedding,
 )
 
@@ -266,15 +267,19 @@ class MattingUNet(nn.Module):
     inpaint_nanoBanana.py:157-189): image (B, H, W, 3) in [0, 1] → alpha
     (B, H, W, 1) f32 in [0, 1]. The UNet trunk without a timestep: three
     levels (×1, ×2, ×4 of ``base``), attention with 4 heads at the
-    lowest."""
+    lowest. The weights are stored in ``param_dtype`` where given (f32 for
+    training, as flax keeps them) and in each layer's compute dtype
+    otherwise."""
 
-    def __init__(self, base: int = 32, dtype=torch.bfloat16, device="cuda"):
+    def __init__(self, base: int = 32, dtype=torch.bfloat16, device="cuda",
+                 param_dtype=None):
         super().__init__()
         self.base = base
         self.trunk = UNet(UNetConfig(
             in_channels=3, out_channels=1, base=base, mults=(1, 2, 4),
             attn_levels=(2,), blocks_per_level=1, num_heads=4,
             time_conditioned=False, dtype=dtype), device=device)
+        store_params_(self, param_dtype)
 
     def forward(self, img):
         return torch.sigmoid(self.trunk(img))

@@ -1,7 +1,9 @@
 """Training step for the flow-matching shape DiT on one device (counterpart
 of regen3d_tpu/parallel/train.py's ``make_optimizer``, ``init_state`` and
 ``train_step``; the mesh and ``data_sharding`` wait for the port's parallel
-layer).
+layer), and the optax chains the distillation trainers use
+(``OptaxAdamW`` with ``cosine_decay_schedule``,
+``warmup_cosine_decay_schedule`` and optax's ``clip_by_global_norm``).
 
 The model holds the parameters (f32, ``param_dtype``) and the optimizer
 holds AdamW's state and step count, where JAX's ``TrainState`` holds both.
@@ -9,8 +11,10 @@ holds AdamW's state and step count, where JAX's ``TrainState`` holds both.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import logging
+from typing import Callable, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from regen3d_tpu_torch.models.dit import (
@@ -18,6 +22,9 @@ from regen3d_tpu_torch.models.dit import (
     flow_matching_loss,
     init_flax_style_,
 )
+from regen3d_tpu_torch.utils import profiling
+
+log = logging.getLogger(__name__)
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4,
@@ -53,3 +60,166 @@ def train_step(model: ShapeDiT, optimizer: torch.optim.Optimizer,
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+# ---------------------------------------------------------------------------
+# optax's schedules and AdamW, step for step
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """optax's ``cosine_decay_schedule`` in f32: init·((1 − alpha)·½(1 +
+    cos(π·min(count, T)/T)) + alpha)."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine_decay_schedule: decay_steps {decay_steps}")
+    f = np.float32
+
+    def schedule(count: int) -> float:
+        c = f(min(count, decay_steps))
+        cosine = f(0.5) * (f(1) + np.cos(f(np.pi) * c / f(decay_steps)))
+        return float(f(init_value) * ((f(1) - f(alpha)) * cosine + f(alpha)))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps`` (a constant ``init_value``
+    schedule at 0 warm-up steps, as optax's ``linear_schedule``), then a
+    cosine from ``peak_value`` to ``end_value`` over the other
+    ``decay_steps − warmup_steps``, joined at ``warmup_steps``."""
+    f = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                                   alpha)
+
+    def linear(count: int) -> float:
+        if warmup_steps <= 0:
+            return float(f(init_value))
+        c = f(min(max(count, 0), warmup_steps))
+        frac = f(1) - c / f(warmup_steps)
+        return float((f(init_value) - f(peak_value)) * frac + f(peak_value))
+
+    def schedule(count: int) -> float:
+        return linear(count) if count < warmup_steps else \
+            cosine(count - warmup_steps)
+
+    return schedule
+
+
+class OptaxAdamW:
+    """optax's ``adamw(schedule, b1, b2, eps, weight_decay)``, optionally
+    after ``clip_by_global_norm(clip_norm)`` (``optax.chain``), on a list
+    of f32 parameters, step for step:
+
+    * the clip: with g_norm = √Σ g² over every gradient, the gradients stay
+      as they are where g_norm < clip_norm and become (g / g_norm)·clip_norm
+      otherwise (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``);
+    * μ = (1 − b1)·g + b1·μ, ν = (1 − b2)·g² + b2·ν, bias-corrected by
+      1 − bᵗ at the count after the step, u = μ̂ / (√ν̂ + eps);
+    * u + wd·p, every parameter decayed (optax's default mask);
+    * p − lr·(…) with lr the schedule at the count BEFORE the step, so the
+      first step takes ``schedule(0)``.
+
+    Gradients come from ``p.grad`` (a parameter without one takes a zero
+    gradient, as an unused flax leaf does)."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 schedule: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4,
+                 clip_norm: Optional[float] = None):
+        self.params: List[torch.nn.Parameter] = list(params)
+        for p in self.params:
+            if p.dtype != torch.float32:
+                raise ValueError(f"OptaxAdamW takes f32 parameters, got "
+                                 f"{p.dtype}")
+        self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
+        self.weight_decay, self.clip_norm = weight_decay, clip_norm
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update of every parameter, with multi-tensor (``foreach``)
+        operations: a few launches for the whole list on the card."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        if self.clip_norm is not None:
+            g_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            # (g / g_norm)·clip as g·(clip / g_norm): the same to an ulp
+            scale = torch.where(g_norm < self.clip_norm,
+                                torch.ones_like(g_norm),
+                                self.clip_norm / g_norm)
+            grads = torch._foreach_mul(grads, scale)
+        f = np.float32
+        lr = self.schedule(self.count)
+        self.count += 1
+        c1 = float(f(1) - f(self.b1) ** f(self.count))
+        c2 = float(f(1) - f(self.b2) ** f(self.count))
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, c2))
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(torch._foreach_div(self.mu, c1), denom)
+        torch._foreach_add_(u, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(self.params, u, alpha=-lr)
+
+
+def on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def train_steps(tag: str, steps: int, sample: Callable[[int], tuple],
+                loss_fn: Callable[..., torch.Tensor], optimizer: OptaxAdamW,
+                device, log_every: int = 0) -> np.ndarray:
+    """The distillation trainers' loop: ``sample(i)`` draws step i's batch
+    on the host (numpy arrays, or tensors it made), one step ahead in a
+    worker thread, so the draws keep their order while the card runs the
+    step before (span ``<tag>.data``: the wait for it); the arrays go to
+    ``device``; then the loss of ``loss_fn(*batch)``, its gradient and the
+    optimiser step (host span and device span ``<tag>.step``).
+    ``loss_fn`` returns the loss, or (loss, {name: term}) whose terms are
+    logged beside it. Every ``log_every`` steps (and the last) the loss is
+    logged, which waits for the card; otherwise the host runs ahead.
+    Returns the losses (f32)."""
+    import concurrent.futures
+
+    def to_device(a):
+        return torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) \
+            else a
+
+    losses = []
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nxt = pool.submit(sample, 0) if steps else None
+        for i in range(steps):
+            with profiling.timed(f"{tag}.data", log_it=False):
+                batch = tuple(to_device(a) for a in nxt.result())
+            if i + 1 < steps:
+                nxt = pool.submit(sample, i + 1)
+            with profiling.timed(f"{tag}.step", log_it=False), \
+                    profiling.device_timed(f"{tag}.step", device):
+                optimizer.zero_grad()
+                out = loss_fn(*batch)
+                loss, aux = out if isinstance(out, tuple) else (out, {})
+                loss.backward()
+                optimizer.step()
+            losses.append(loss.detach())
+            if log_every and (i % log_every == 0 or i == steps - 1):
+                terms = " ".join(f"{k} {float(v.detach()):.3f}"
+                                 for k, v in aux.items())
+                log.info("%s step %d/%d loss %.4f%s", tag, i, steps,
+                         float(loss.detach()), f" ({terms})" if terms else "")
+    return torch.stack(losses).float().cpu().numpy() if losses else \
+        np.zeros(0, np.float32)

@@ -84,6 +84,8 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.upscale",
     "regen3d_tpu_torch.pipeline.interactive",
     "regen3d_tpu_torch.pipeline.editor_ui",
+    "regen3d_tpu_torch.utils.profiling", "regen3d_tpu_torch.distill",
+    "regen3d_tpu_torch.parallel.batches",
 ]
 # imported only inside the functions that need them: the card's machine
 # has none of them
@@ -99,7 +101,8 @@ def test_port_imports_no_jax():
             f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
             f"lazy = {LAZY_PACKAGES!r}\n"
             "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib', 'flax', 'regen3d_tpu.')) "
+            "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
+            "'regen3d_tpu.')) "
             "or m == 'regen3d_tpu' or m.split('.')[0] in lazy)\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
