@@ -201,7 +201,20 @@ Phases, each reported on one line:
    flash shape of those runs held against the plain version. The kernels'
    D = 12 and 24 instances are held in step 2: bit for bit the width-16
    and 32 instances on zero-padded inputs (forward, dq, dk, dv), then the
-   plain version's bounds.
+   plain version's bounds; so are the backward's D = 4 and 8 (the matting
+   net's heads at --base 4 and 8), and the matting trainer takes one step
+   at --base 8 on the card against the CPU and through its runner;
+13. the parallel layer (phase_parallel) at world size 1: a NCCL process
+   group of one rank (a file store under build/parallel/), a (1, 1)
+   make_mesh, and the four programs at full width, each bit for bit its
+   unsharded run: the DiTConfig.base() train step (phase_dit's weights,
+   batch and fixed draws) through shard_params and train_step_sharded,
+   fit_poses_sharded on the bus's phase-6 batch (phase_bus's 5-iteration
+   fit), VGGT-1B through shard_params, and scene_step over the mesh
+   (against phase_scene's run); run_fleet over three scenes with phases
+   [1, 2] (its thread pool), one scene's input missing: the two good
+   scenes write their findings and phase 2's images, the bad one fails
+   alone with its FileNotFoundError and no CUDA error.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the launches that compare a kernel with its plain version are not
@@ -269,6 +282,10 @@ D4_SHAPES = [(6, 2, 1024, 1024, 4), (6, 2, 1024, 1025, 4),
 # zero-padded inputs, then under the plain version's bound
 DISTILL_SHAPES = [(8, 2, 576, 576, 24), (8, 4, 64, 64, 24),
                   (18, 4, 16, 16, 12)]
+# the backward's D = 4 and 8: the matting net's attention (4 heads of
+# `base` over the 32² level) at the runner's 128² and batch 16, at --base 4
+# and 8; each bit for bit the width-16 instance on zero-padded inputs
+MATTING_BWD_SHAPES = [(16, 4, 1024, 1024, 8), (16, 4, 1024, 1024, 4)]
 KERNELS = {
     "flash_fwd": dict(route="cuda", source="regen3d_tpu_torch/csrc/flash_fwd.cu",
                       replaces="regen3d_tpu/ops/attention.py:46"),
@@ -308,7 +325,7 @@ MAIN_PATHS = ("scene_launches", "phase4_launches", "phase4_ba_launches",
               "x4_upscale_launches", "flux_upscale_launches",
               "cli_upscale_launches", "editor_launches",
               "distill_launches", "distill_phase1_launches",
-              "distill_phase1_sam_launches")
+              "distill_phase1_sam_launches", "parallel_launches")
 # the spin before each timed run: ~10 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700-W limit)
@@ -472,9 +489,7 @@ def phase_device(kernels, results):
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(f"device: {smi}")
     t0 = time.perf_counter()
-    built = kernels.build()
-    for name in kernels.SOURCES:
-        kernels.lib(name)
+    built = kernels.load_all()
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{sorted(built) or 'nothing (up to date)'}")
     from regen3d_tpu_torch.ops import marching_cubes
@@ -1334,7 +1349,7 @@ def phase_bwd_kernels(results):
     for shape in BWD_CHECK_SHAPES:
         flash_case(shape, False)
     distill = []
-    for shape in DISTILL_SHAPES:
+    for shape in DISTILL_SHAPES + MATTING_BWD_SHAPES:
         d = shape[-1]
         bwd_padded_check(shape, gen, -(-d // 16) * 16)
         r = flash_case(shape, False)
@@ -1342,10 +1357,14 @@ def phase_bwd_kernels(results):
                             sdpa_err=r["sdpa_err"], bound=r["bound"],
                             **r["ms"]))
     ptx = {f"{k}<{d}>": results["ptxas"].get(f"{k}<{d}>")
-           for k in ("bwd_dq_kernel", "bwd_dkv_kernel") for d in (12, 24)}
-    log(f"ptxas, the D = 12 and 24 backward instances: {ptx}")
-    if not all(ptx.values()):
-        raise AssertionError(f"the D = 12 and 24 backward instances: {ptx}")
+           for k in ("bwd_dq_kernel", "bwd_dkv_kernel")
+           for d in (4, 8, 12, 24)}
+    log(f"ptxas, the D = 4, 8, 12 and 24 backward instances: {ptx}")
+    spills = {k: v for k, v in ptx.items() if v and
+              v.get("spill_stores", 0) + v.get("spill_loads", 0)}
+    if not all(ptx.values()) or spills:
+        raise AssertionError(f"the D = 4, 8, 12 and 24 backward instances: "
+                             f"{ptx}")
     for shape, grid in GB_BWD_CHECKS:
         gb_case(shape, grid, False)
     for n in ("dq", "dkv"):
@@ -1359,7 +1378,8 @@ def phase_bwd_kernels(results):
                     "together, the same time for both kernels of the pair",
             timed=f"times summed over the {len(BWD_SHAPES)} shapes (B, H, "
                   f"Sq, Sk, D) {BWD_SHAPES}; errors also over "
-                  f"{BWD_CHECK_SHAPES} and {DISTILL_SHAPES}",
+                  f"{BWD_CHECK_SHAPES}, {DISTILL_SHAPES} and "
+                  f"{MATTING_BWD_SHAPES}",
             distill_shapes=[dict(shape=r["shape"], ms=r[n], plain_ms=r[n + "_p"],
                                  library_ms=r["lib"], bound_ms=r["bound"][n][0],
                                  bound_by=r["bound"][n][1],
@@ -2930,6 +2950,8 @@ def phase_bus(results):
         raise AssertionError(f"bus fit, 5 iterations: two runs differ "
                              f"({fit_again:.3e} in the params)")
     probe = fit_determinism(init, batch, cam, short)
+    # phase_parallel holds fit_poses_sharded to this fit
+    results["bus_fit"] = dict(args=(init, batch, cam, short), ref=r_k)
     p_err = max(float((a - b).abs().max()) for a, b in zip(r_k.params,
                                                            r_p.params))
     l_err = float(((r_k.losses - r_p.losses).abs() / r_p.losses.abs()).max())
@@ -4095,6 +4117,8 @@ def phase_scene(results, runs=1):
         f"{int(res.points_valid.sum())}; launches {counts}")
     results["scene_launches"] = counts
     results["scene_sec"] = ts[len(ts) // 2]
+    # phase_parallel holds the scene step over a mesh to this run
+    results["scene_ref"] = res
     # phase_camera drives phase 4 with these two models, then drops them
     results["vggt_models"] = dict(small=cpu_model, full=model)
 
@@ -7288,7 +7312,7 @@ def distill_card_vs_cpu():
     weights and batch: the losses, every gradient and the updated weights,
     under DISTILL_LOSS_ERR and DISTILL_MEAN_ERR. The detector and saliency
     net at distill_config(32) / small_config(32) run D = 24 and 12 on the
-    card, forward and backward."""
+    card, forward and backward, and the matting net at base 8 D = 8."""
     import dataclasses
 
     import numpy as np
@@ -7320,9 +7344,9 @@ def distill_card_vs_cpu():
         m = micro.with_dtype(dt)
         kw = dict(device=dev, param_dtype=f32)
         return {
-            # base 16: heads of 16 at the attention level (the backward
-            # kernels take D ≥ 12)
-            "matting": ([munet.MattingUNet(base=16, dtype=dt, **kw)],
+            # base 8: heads of 8 at the attention level, the runner's
+            # --base 8 (ROADMAP Queue 3 be)
+            "matting": ([munet.MattingUNet(base=8, dtype=dt, **kw)],
                         lambda ms, b: mat.matting_loss(ms[0], *b)),
             "saliency": ([msal.SaliencyTransformer(scfg, **kw)],
                          lambda ms, b: sal.saliency_loss(ms[0], *b)),
@@ -7400,6 +7424,34 @@ def distill_card_vs_cpu():
     return out
 
 
+def matting_base8_runner():
+    """``python -m regen3d_tpu_torch.distill matting --base 8`` on the card
+    (ROADMAP Queue 3 be: its heads of 8 reach the backward kernels), cut to
+    one step of batch 2 at 32² and two held-out samples: the step's loss
+    finite and the D = 8 backward launched; its verdict against the
+    fallback is reported, not gated."""
+    import tempfile
+
+    from regen3d_tpu_torch import distill, kernels
+
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    with recording_flash_shapes() as shapes, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        rep = distill.RUNNERS["matting"](distill.parse(
+            ["matting", "--out", out, "--base", "8", "--steps", "1",
+             "--batch", "2", "--size", "32", "--eval-samples", "2"]))
+    dq = kernels.LAUNCHES["flash_bwd_dq"] - before["flash_bwd_dq"]
+    dims = sorted({sh[-1] for sh in shapes})
+    row = dict(s=round(time.perf_counter() - t0, 2),
+               loss=float(rep["losses"][0]), dims=dims, bwd_dq_launches=dq,
+               net=rep["net"], fallback=rep["fallback"])
+    log(f"matting runner at --base 8 on the card, one step: {row}")
+    if not (math.isfinite(row["loss"]) and dims == [8] and dq > 0):
+        raise AssertionError(f"matting --base 8 on the card: {row}")
+    return row
+
+
 def phase_distill(results, sam):
     """The distillation trainers on the card (ROADMAP Queue 1 item 8):
     one training step of each micro trainer against the CPU's f32; the four
@@ -7429,6 +7481,7 @@ def phase_distill(results, sam):
     log(f"distill trainers, one step card vs CPU f32 "
         f"({time.perf_counter() - t0:.1f} s; loss rel. tol "
         f"{DISTILL_LOSS_ERR}, mean/max tol {DISTILL_MEAN_ERR}): {checks}")
+    checks["matting_base8_runner"] = matting_base8_runner()
     root = ROOT / "build" / "distill"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -7498,6 +7551,194 @@ def phase_distill(results, sam):
     log(f"phase_distill: {time.perf_counter() - t_phase:.1f} s")
 
 
+def fleet_check(root):
+    """run_fleet over three scenes with phases [1, 2] on the card (the
+    thread pool): two synthetic rooms (phase_segment's room at 240 × 320)
+    and one scene whose input is missing. The good scenes must succeed and
+    write their findings and phase 2's prepped images; the bad one must
+    fail alone, with its missing file named and no CUDA error, and the card
+    must synchronise after."""
+    import os
+
+    import torch
+
+    from regen3d_tpu_torch.artifacts import Artifacts
+    from regen3d_tpu_torch.config import default_config
+    from regen3d_tpu_torch.parallel.fleet import SceneJob, run_fleet
+    from regen3d_tpu_torch.utils.image import save_image
+
+    jobs = []
+    for i in range(2):
+        img = _room_image(seed=i)[0][::4, ::4]
+        path = root / f"scene{i}.png"
+        save_image(str(path), img)
+        jobs.append(SceneJob(f"s{i}", str(path), str(root / f"s{i}" /
+                                                      "output")))
+    jobs.insert(1, SceneJob("bad", str(root / "missing.png"),
+                            str(root / "bad" / "output")))
+    t0 = time.perf_counter()
+    res = {r.scene_id: r for r in run_fleet(jobs, phases=[1, 2],
+                                            device="cuda")}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    written = {}
+    for sid in ("s0", "s1"):
+        art = Artifacts(default_config(str(root / sid / "output")))
+        written[sid] = (len(art.list_findings()),
+                        len(os.listdir(art.prepped_dir))
+                        if os.path.isdir(art.prepped_dir) else 0)
+    bad = res["bad"]
+    row = dict(s=round(dt, 2), ok={k: r.ok for k, r in res.items()},
+               written=written, bad_error=bad.error)
+    log(f"run_fleet, 3 scenes, phases [1, 2] in its thread pool: {row}")
+    if not (res["s0"].ok and res["s1"].ok and not bad.ok
+            and all(n > 0 and m == n for n, m in written.values())
+            and "missing.png" in (bad.error or "")
+            and "CUDA" not in (bad.error or "")):
+        raise AssertionError(f"run_fleet: {row}")
+    return row
+
+
+def phase_parallel(results):
+    """The parallel layer at world size 1 (ROADMAP Queue 1 item 9): a NCCL
+    process group of one rank from a file store, a (1, 1) make_mesh, and
+    the dry run's four programs at full width, each bit for bit its
+    unsharded run on the same inputs (parallel/dryrun's pairs): the
+    DiTConfig.base() train step (phase_dit's seed-0 weights with the
+    AdaLN-Zero leaves drawn, B = 8, 257 condition tokens, its fixed draws),
+    fit_poses_sharded on the bus's phase-6 batch (phase_bus's 5-iteration
+    fit), VGGT-1B's forward through shard_params, and scene_step over the
+    mesh against phase_scene's run (the same seed-0 VGGT-1B and inputs,
+    SCENE_ITERS iterations). Counts zeroed before the four sharded runs and
+    read after them (parallel_launches). Then run_fleet (fleet_check)."""
+    import copy
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from regen3d_tpu_torch import kernels
+    from regen3d_tpu_torch.models.dit import (
+        DiTConfig,
+        ShapeDiT,
+        draw_zero_init_leaves_,
+        init_flax_style_,
+    )
+    from regen3d_tpu_torch.models.vggt import VGGT, VGGTConfig
+    from regen3d_tpu_torch.models.vggt import init_flax_style_ as vggt_init
+    from regen3d_tpu_torch.parallel import dryrun
+    from regen3d_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from regen3d_tpu_torch.pipeline.scene_step import scene_step
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        shape = (mesh.size(0), mesh.size(1))
+        if shape != (1, 1) or mesh.device_type != "cuda":
+            raise AssertionError(f"make_mesh at world size 1: {shape} on "
+                                 f"{mesh.device_type}")
+        launches = collections.Counter()
+        secs = {}
+
+        def exact(what, got, ref):
+            dryrun.check_close(what, got, ref, 0, 0, True)
+
+        # 1. the DiT-base train step
+        cfg = DiTConfig.base()
+        model = ShapeDiT(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        init_flax_style_(model, gen)
+        draw_zero_init_leaves_(model, gen)
+        x0 = torch.randn((8, cfg.latent_tokens, cfg.latent_dim),
+                         generator=gen, device="cuda")
+        cond = torch.randn((8, 257, cfg.cond_dim), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        fixed = _dit_draws(8, x0.shape, torch.Generator().manual_seed(7),
+                           "cuda")
+        kernels.reset_counts()
+        ref, got, t_ref, t = dryrun.dit_step_pair(model, x0, cond, fixed,
+                                                  mesh)
+        dryrun.check_dit(ref, got, exact=True)
+        launches.update(t.launches)
+        secs["dit_step"] = t.seconds
+        secs["dit_step_unsharded"] = t_ref.seconds
+        n_dit = len(ref["params"])
+        del model, ref, got
+
+        # 2. the bus's fit
+        init, batch, cam, short = results["bus_fit"]["args"]
+        ref, got, t = dryrun.fit_pair(init, batch, cam, short, mesh)
+        for name in ("translation", "yaw", "rot_aa", "log_scale"):
+            exact(f"bus fit {name}", getattr(got.params, name),
+                  getattr(ref.params, name))
+        exact("bus fit losses", got.losses, ref.losses)
+        exact("bus fit converged", got.converged, ref.converged)
+        exact("bus fit against phase_bus's", got.losses,
+              results["bus_fit"]["ref"].losses)
+        if got.num_iters != ref.num_iters:
+            raise AssertionError("bus fit: iterations differ")
+        launches.update(t.launches)
+        secs["fit"] = t.seconds
+        del results["bus_fit"]
+
+        # 3. VGGT-1B's forward, 4. the scene step
+        vcfg = VGGTConfig()
+        model = VGGT(vcfg)
+        vggt_init(model, torch.Generator(device="cuda").manual_seed(0))
+        model.eval()
+        args = _scene_inputs(vcfg, "cuda")
+        sharded = copy.deepcopy(model)
+        shard_params(sharded, mesh)
+        with torch.no_grad():
+            with dryrun.Timed("cuda") as t_ref:
+                ref = model(args[0][None])
+            with dryrun.Timed("cuda") as t:
+                got = sharded(args[0][None])
+        for key in ("depth", "depth_conf", "pose_enc"):
+            exact(f"VGGT-1B {key}", got[key], ref[key])
+        launches.update(t.launches)
+        secs["vggt"] = t.seconds
+        secs["vggt_unsharded"] = t_ref.seconds
+        del model
+        # the unsharded run is phase_scene's, from the same weights and inputs
+        ref = results.pop("scene_ref")
+        with dryrun.Timed("cuda") as t:
+            got = scene_step(sharded, *args, _scene_fit_cfg(
+                vcfg.image_size, iters=SCENE_ITERS), num_points=1024,
+                mesh=mesh)
+        for key in ("verts_world", "losses", "depth", "points"):
+            exact(f"scene step {key}", getattr(got, key), getattr(ref, key))
+        launches.update(t.launches)
+        secs["scene_step"] = t.seconds
+        del sharded, ref, got
+        torch.cuda.empty_cache()
+        results["parallel_launches"] = dict(launches)
+        log(f"parallel programs on a (1, 1) NCCL mesh, each bit for bit its "
+            f"unsharded run: DiT-base train step ({n_dit} parameters and "
+            f"their gradients, the loss), the bus fit ({short.max_iterations} "
+            f"iterations, {batch.verts.shape[0]} objects), VGGT-1B's depth, "
+            f"confidence and pose, scene_step_{SCENE_ITERS}it's outputs; "
+            f"seconds of the sharded runs (and of two unsharded ones) "
+            f"{ {k: round(v, 3) for k, v in secs.items()} }; their launches "
+            f"{dict(launches)}")
+        for k in ("silhouette_fwd", "silhouette_bwd", "flash_fwd",
+                  "flash_bwd_dq", "flash_bwd_dkv"):
+            if not launches.get(k):
+                raise AssertionError(f"the parallel programs never launched "
+                                     f"{k}")
+    finally:
+        dist.destroy_process_group()
+
+    results["parallel"] = dict(seconds=secs, fleet=fleet_check(root))
+    log(f"phase_parallel: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -7540,6 +7781,7 @@ def main() -> int:
     timed(phase_alternates, results)
     timed(phase_dit, results)
     timed(phase_sam_grad, results)
+    timed(phase_parallel, results)
     log(f"seconds by phase: {clock}")
 
     summary = []

@@ -63,6 +63,12 @@
 // * Head dims 16, 32, 64 and 128 are template instances. At D = 128 the
 //   streamed tile is 32 rows, which keeps the dk and dv accumulators (128
 //   f32 registers a thread) beside s and dp in registers.
+// * Head dims 4, 8, 12 and 24 (the matting net's heads of `base`, the
+//   distilled detector's and saliency net's) are computed at width 16 and
+//   32 (DC<D>): load_tile zero-fills the columns past D in shared memory, so
+//   q·kᵀ, g·vᵀ and the products with them see zeros there, the scale stays
+//   1/√D of the true D, and store_rows writes only the first D columns. Each
+//   is bit for bit the wider instance on zero-padded inputs.
 //
 // The grid-bias pair (D = 80): the same design, with the factored bias.
 // * The (S, S) bias never exists. The dq block keeps its 64 rows of bias_h
@@ -87,8 +93,9 @@
 // tc_tiles.cuh, shared with the forward kernel (flash_fwd.cu).
 //
 // Shared memory passes 48 KB, so the launches opt in with
-// cudaFuncSetAttribute. Head dims: 12, 16, 24, 32, 64 and 128 without a bias, 80
-// (SAM-H) with the grid bias: those of the forward kernel.
+// cudaFuncSetAttribute. Head dims: 4, 8, 12, 16, 24, 32, 64 and 128 without a
+// bias, 80 (SAM-H) with the grid bias: those of the forward kernel but 96
+// and 512.
 
 #include "tc_tiles.cuh"
 
@@ -892,6 +899,8 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 4: return (int)launch_dq<4>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
+    case 8: return (int)launch_dq<8>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 12: return (int)launch_dq<12>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 16: return (int)launch_dq<16>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
     case 24: return (int)launch_dq<24>(q, k, v, g, lse, delta, dq, bh, sq, sk, scale, st);
@@ -912,6 +921,8 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 4: return (int)launch_dkv<4>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
+    case 8: return (int)launch_dkv<8>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 12: return (int)launch_dkv<12>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 16: return (int)launch_dkv<16>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);
     case 24: return (int)launch_dkv<24>(q, k, v, g, lse, delta, dk, dv, bh, sq, sk, scale, st);

@@ -22,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -38,6 +39,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
 BUILD_LOG: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -145,17 +147,30 @@ def build(names=SOURCES) -> Dict[str, float]:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (one
+    thread builds and loads it; the others wait)."""
     if name not in _LIBS:
-        path = _lib_path(name)
-        if not path.exists():
-            build((name,))
-        cdll = ctypes.CDLL(str(path))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
-        _LIBS[name] = cdll
+        with _LOAD_LOCK:
+            if name not in _LIBS:
+                path = _lib_path(name)
+                if not path.exists():
+                    build((name,))
+                cdll = ctypes.CDLL(str(path))
+                for fn, argtypes in _SIGNATURES[name].items():
+                    getattr(cdll, fn).argtypes = argtypes
+                    getattr(cdll, fn).restype = ctypes.c_int
+                _LIBS[name] = cdll
     return _LIBS[name]
+
+
+def load_all() -> Dict[str, float]:
+    """Build every source that needs it (all ``nvcc`` processes at once) and
+    load every library, as before threads that launch kernels start.
+    Returns ``build``'s seconds per source built."""
+    built = build()
+    for name in SOURCES:
+        lib(name)
+    return built
 
 
 def check(err: int, what: str) -> None:

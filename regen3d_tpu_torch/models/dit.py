@@ -172,6 +172,21 @@ def draw_zero_init_leaves_(model: ShapeDiT, generator: torch.Generator,
 # Rectified-flow training and sampling
 # -----------------------------------------------------------------------------
 
+def flow_draws(x0: torch.Tensor, generator: Optional[torch.Generator],
+               cond_drop_prob: float = 0.1
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flow loss's draws for the batch ``x0`` from ``generator`` (on
+    x₀'s device), in this order: t (B,) uniform, ε like x₀ normal, drop
+    (B,) bool with probability ``cond_drop_prob``."""
+    b = x0.shape[0]
+    t = torch.rand(b, generator=generator, device=x0.device)
+    eps = torch.randn(x0.shape, generator=generator, device=x0.device,
+                      dtype=x0.dtype)
+    drop = torch.rand(b, generator=generator,
+                      device=x0.device) < cond_drop_prob
+    return t, eps, drop
+
+
 def flow_matching_loss(model: ShapeDiT, x0: torch.Tensor, cond: torch.Tensor,
                        generator: Optional[torch.Generator],
                        cond_drop_prob: float = 0.1,
@@ -182,15 +197,8 @@ def flow_matching_loss(model: ShapeDiT, x0: torch.Tensor, cond: torch.Tensor,
     condition zeroed for a ``cond_drop_prob`` share of the batch. The draws
     (t (B,) uniform, ε like x₀ normal, drop (B,) bool) come from
     ``generator`` (on x₀'s device) unless ``draws`` gives them."""
-    b = x0.shape[0]
-    if draws is None:
-        t = torch.rand(b, generator=generator, device=x0.device)
-        eps = torch.randn(x0.shape, generator=generator, device=x0.device,
-                          dtype=x0.dtype)
-        drop = torch.rand(b, generator=generator,
-                          device=x0.device) < cond_drop_prob
-    else:
-        t, eps, drop = draws
+    t, eps, drop = draws if draws is not None else flow_draws(
+        x0, generator, cond_drop_prob)
     x_t = (1.0 - t)[:, None, None] * x0 + t[:, None, None] * eps
     cond_used = cond.masked_fill(drop[:, None, None], 0.0)
     v = model(x_t, t, cond_used)

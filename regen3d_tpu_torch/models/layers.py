@@ -19,7 +19,11 @@ The modules follow flax's numerics, which the JAX package runs:
 * GELU is the tanh approximation (flax ``nn.gelu``);
 * ``Conv`` pads ``SAME`` and keeps NHWC at its interface;
 * ``ConvTranspose`` is flax's ``nn.ConvTranspose`` (``SAME``);
-* every module is built on the card unless the caller passes ``device``.
+* every module is built on the card unless the caller passes ``device``;
+* under ``parallel/mesh.shard_params`` a ``Dense`` holds its rank's shard
+  and a ``TPLayout`` (``tp``) and computes through ``parallel/tp.linear``;
+  the attention modules then run the flash kernels on the rank's own heads
+  (``tp`` is None on one device, where nothing changes).
 
 Submodule names follow the flax tree, so ``models/from_jax.py`` maps
 parameters by name.
@@ -36,23 +40,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from regen3d_tpu_torch.ops.attention import flash_attention
+from regen3d_tpu_torch.parallel import tp as tensor_parallel
 
 LN_EPS = 1e-6
 
 
 class Dense(nn.Linear):
     """flax ``nn.Dense``: input, weight and bias are cast to ``dtype``; the
-    parameters are stored in ``param_dtype`` (default ``dtype``)."""
+    parameters are stored in ``param_dtype`` (default ``dtype``). ``tp``
+    (set by ``parallel/mesh.shard_params``) makes it a column or row
+    projection over a process group."""
 
     def __init__(self, d_in, d_out, bias=True, dtype=torch.float32,
                  device="cuda", param_dtype=None):
         super().__init__(d_in, d_out, bias=bias, dtype=param_dtype or dtype,
                          device=device)
         self.dtype = dtype
+        self.tp: Optional[tensor_parallel.TPLayout] = None
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        w = self.weight.to(self.dtype)
+        if self.tp is not None:
+            return tensor_parallel.linear(self.tp, x.to(self.dtype), w, b)
+        return F.linear(x.to(self.dtype), w, b)
 
 
 class Conv(nn.Conv2d):
@@ -186,17 +197,23 @@ def gelu(x):
 
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm`` over the last axis: f32 statistics and f32
-    ``weight`` (flax's ``scale``), output in ``dtype``."""
+    ``weight`` (flax's ``scale``), output in ``dtype``. With ``tp`` (role
+    ``partial``: a q/k norm of a tensor-parallel attention, applied to this
+    rank's heads) the weight's gradient sums over the group."""
 
     def __init__(self, dim, dtype=torch.float32, device="cuda"):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.tp: Optional[tensor_parallel.TPLayout] = None
 
     def forward(self, x):
         x = x.float()
+        w = self.weight
+        if self.tp is not None:
+            w = tensor_parallel.copy_to(w, self.tp.group)
         mul = torch.rsqrt(x.square().mean(-1, keepdim=True) + LN_EPS)
-        return (x * (mul * self.weight)).to(self.dtype)
+        return (x * (mul * w)).to(self.dtype)
 
 
 class Mlp(nn.Module):
@@ -213,7 +230,10 @@ class Mlp(nn.Module):
 
 
 class FusedAttention(nn.Module):
-    """Self-attention with one fused qkv projection (torch-ViT layout)."""
+    """Self-attention with one fused qkv projection (torch-ViT layout).
+    Under tensor parallelism ``qkv`` holds this rank's heads' q, k and v
+    columns (``parallel/mesh.shard_params``'s head-blocked placement), so
+    the reshape below splits the rank's own heads."""
 
     def __init__(self, dim, num_heads, dtype=torch.float32, device="cuda"):
         super().__init__()
@@ -224,16 +244,17 @@ class FusedAttention(nn.Module):
     def forward(self, x):
         b, s, e = x.shape
         hd = e // self.num_heads
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, hd)
+        qkv = self.qkv(x).reshape(b, s, 3, -1, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
         o = flash_attention(q, k, v)
-        return self.proj(o.transpose(1, 2).reshape(b, s, e))
+        return self.proj(o.transpose(1, 2).reshape(b, s, -1))
 
 
 class Attention(nn.Module):
     """Multi-head self- or cross-attention with separate q, k, v and proj
     projections (all with bias) and, with ``qk_norm``, an RMSNorm over the
-    head dim of q and k; on the flash kernels."""
+    head dim of q and k; on the flash kernels (this rank's heads under
+    tensor parallelism)."""
 
     def __init__(self, dim, num_heads, qk_norm=False, dtype=torch.float32,
                  device="cuda", param_dtype=None):
@@ -254,13 +275,13 @@ class Attention(nn.Module):
         hd = e // self.num_heads
 
         def split(t):
-            return t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)
+            return t.reshape(*t.shape[:2], -1, hd).transpose(1, 2)
 
         q, k, v = split(self.q(x_q)), split(self.k(x_kv)), split(self.v(x_kv))
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-        return self.proj(o.transpose(1, 2).reshape(b, sq, e))
+        return self.proj(o.transpose(1, 2).reshape(b, sq, -1))
 
 
 class TransformerBlock(nn.Module):

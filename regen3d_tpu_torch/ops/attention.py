@@ -9,7 +9,7 @@ q, k, v are (B, H, S, D). Both ops are ``torch.autograd.Function``s.
   backward (bf16 in and out, tensor cores with f32 accumulation, p (and
   scale·ds backward) rounded to bf16 before the second products; the
   forward at D ∈ {4, 8, 12, 16, 24, 32, 64, 96, 128, 512}, the backward at
-  D ∈ {12, 16, 24, 32, 64, 128}).
+  D ∈ {4, 8, 12, 16, 24, 32, 64, 128}).
 * :func:`flash_attention_grid_bias_fwd` launches the same forward kernel
   with SAM's factored key-grid bias and ``csrc/flash_bwd.cu``'s grid-bias
   dq and dkv kernels backward (the same tensor-core design, the dq kernel
@@ -35,9 +35,10 @@ import torch
 from regen3d_tpu_torch import kernels
 
 # both directions; 12 and 24: the distilled detector's and saliency net's
-# heads (distill_config, small_config), computed at width 16 and 32 in
-# shared memory (csrc/tc_tiles.cuh's DC)
-KERNEL_HEAD_DIMS = (12, 16, 24, 32, 64, 128)
+# heads (distill_config, small_config), 4 and 8: the matting net's at
+# ``--base`` 4 and 8 (and the tiny SD UNet's and generator's), computed at
+# width 16 and 32 in shared memory (csrc/tc_tiles.cuh's DC)
+KERNEL_HEAD_DIMS = (4, 8, 12, 16, 24, 32, 64, 128)
 # 96: the saliency net's; 8: the random-init tiny generator's condition
 # encoder and 4: the tiny SD UNet's heads (both computed at width 16 in
 # shared memory, csrc/flash_fwd.cu); 512: the SD VAE's mid-block attention

@@ -1,8 +1,9 @@
-"""Training step for the flow-matching shape DiT on one device (counterpart
-of regen3d_tpu/parallel/train.py's ``make_optimizer``, ``init_state`` and
-``train_step``; the mesh and ``data_sharding`` wait for the port's parallel
-layer), and the optax chains the distillation trainers use
-(``OptaxAdamW`` with ``cosine_decay_schedule``,
+"""Training step for the flow-matching shape DiT (counterpart of
+regen3d_tpu/parallel/train.py's ``make_optimizer``, ``init_state``,
+``train_step`` and ``data_sharding``): on one device (:func:`train_step`)
+and over a (dp, tp) mesh (:func:`train_step_sharded`, the parameters placed
+by ``parallel/mesh.shard_params``); and the optax chains the distillation
+trainers use (``OptaxAdamW`` with ``cosine_decay_schedule``,
 ``warmup_cosine_decay_schedule`` and optax's ``clip_by_global_norm``).
 
 The model holds the parameters (f32, ``param_dtype``) and the optimizer
@@ -12,13 +13,15 @@ holds AdamW's state and step count, where JAX's ``TrainState`` holds both.
 from __future__ import annotations
 
 import logging
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from regen3d_tpu_torch.models.dit import (
     ShapeDiT,
+    flow_draws,
     flow_matching_loss,
     init_flax_style_,
 )
@@ -60,6 +63,81 @@ def train_step(model: ShapeDiT, optimizer: torch.optim.Optimizer,
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def data_sharding(mesh) -> Tuple:
+    """The batch's DTensor placements on a (dp, tp) mesh: its first axis
+    over 'dp', replicated over every other axis (JAX's ``P('dp')``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(0) if a == "dp" else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def shard_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch under :func:`data_sharding`
+    (every rank passes the whole batch, so no rank sends). Raises unless
+    dp divides it."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dp = mesh.size(mesh.mesh_dim_names.index("dp"))
+    if x.shape[0] % dp:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                         f"dp={dp}")
+    return distribute_tensor(x, mesh, data_sharding(mesh),
+                             src_data_rank=None).to_local()
+
+
+def train_step_sharded(model: ShapeDiT, optimizer: torch.optim.Optimizer,
+                       x0: torch.Tensor, cond: torch.Tensor,
+                       generator: Optional[torch.Generator], mesh,
+                       draws: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]] = None
+                       ) -> torch.Tensor:
+    """One flow-matching step over a (dp, tp) mesh: the global batch's loss,
+    its gradient and an AdamW update, as :func:`train_step` computes them
+    on one device. ``model``'s parameters are placed by
+    ``parallel/mesh.shard_params``; every rank passes the same global batch
+    (``x0``, ``cond``) and a generator in the same state (or the global
+    ``draws``), and takes its dp rows. The global mean is the mean of the
+    dp ranks' equal-sized means, so each gradient is summed over 'dp' and
+    divided by dp (one all-reduce per dtype; none at dp = 1). Returns the
+    global loss (before the update)."""
+    i = mesh.mesh_dim_names.index("dp")
+    dp, group = mesh.size(i), mesh.get_group(i)
+    if draws is None:
+        draws = flow_draws(x0, generator)
+    optimizer.zero_grad(set_to_none=True)
+    loss = flow_matching_loss(model, shard_batch(x0, mesh),
+                              shard_batch(cond, mesh), None,
+                              draws=tuple(shard_batch(d, mesh)
+                                          for d in draws))
+    loss.backward()
+    loss = loss.detach()
+    if dp > 1:
+        _mean_over(model, group, dp)
+        loss = loss.clone()
+        dist.all_reduce(loss, group=group)
+        loss = loss / dp
+    optimizer.step()
+    return loss
+
+
+def _mean_over(model: torch.nn.Module, group, n: int) -> None:
+    """Every gradient summed over ``group`` and divided by ``n``, in one
+    all-reduce per dtype (a flat copy of the gradients, written back)."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in model.parameters():
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,13 @@ Then every object goes through one batched Adam fit
 the full-resolution meshes, saved to output/glb/<stem>.glb, with a GIF of
 the fit where PIL is present.
 
-One device: the object axis is padded to a multiple of 4 as the JAX package
-pads it on one chip; the JAX package's sharded fit over several chips is
-not ported. The RANSAC floor fit draws its samples from a
+Under a process group of several ranks (``torch.distributed``, every rank
+running the phase on the same bus) the object axis is split over them
+(:func:`pipeline.pose_fit.fit_poses_sharded` over ``make_mesh(tp=1)``), as
+the JAX package shards it over several chips, unless ``shard_pose_fit`` is
+false (``parallel/fleet.run_fleet`` sets it so: its ranks run different
+scenes); otherwise it is padded to a multiple of 4, as the JAX package pads
+it on one chip. The RANSAC floor fit draws its samples from a
 ``torch.Generator`` seeded with ``cfg.seed`` (JAX draws from
 ``jax.random.PRNGKey(seed)``, which torch cannot reproduce).
 """
@@ -38,6 +42,7 @@ from regen3d_tpu_torch.ops.plane import (
     fit_plane_svd,
     plane_transforms,
 )
+from regen3d_tpu_torch.parallel.mesh import make_mesh
 from regen3d_tpu_torch.pipeline.pose_fit import (
     FitConfig,
     FitResult,
@@ -45,6 +50,7 @@ from regen3d_tpu_torch.pipeline.pose_fit import (
     PoseParams,
     find_best_initial_yaw,
     fit_poses,
+    fit_poses_sharded,
     pad_batch_to,
     pose_transform,
 )
@@ -147,6 +153,18 @@ def fit_floor_plane(cfg: Config, floor_points: np.ndarray, device="cuda",
     d_svd = (svd_plane.signed_distance(pts).abs() < 0.05).float().mean()
     d_ran = (ransac_plane.signed_distance(pts).abs() < 0.05).float().mean()
     return ransac_plane if float(d_ran) >= float(d_svd) else svd_plane
+
+
+def fit_path(cfg: Config) -> str:
+    """``"sharded"`` where a process group of several ranks runs and
+    ``shard_pose_fit`` holds (default true), else ``"padded"`` (JAX's
+    choice on ``jax.device_count()``)."""
+    import torch.distributed as dist
+
+    several = dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+    return "sharded" if several and bool(cfg.get("shard_pose_fit", True)) \
+        else "padded"
 
 
 def run(cfg: Config, device="cuda",
@@ -364,13 +382,21 @@ def _run(cfg, device, ransac_idx):
                       log_scale=t_(init_logs))
     log.info("phase6: fitting %d objects in one batch (%dx%d, %d iters)",
              b, render_h, render_w, fit_cfg.max_iterations)
-    # the object axis padded to a multiple of 4, as the JAX package pads it
-    batch_p, init_p, _ = pad_batch_to(batch, init, 4)
-    r = fit_poses(init_p, batch_p, cam, fit_cfg)
-    result = FitResult(
-        params=PoseParams(*(x[:b] for x in r.params)), losses=r.losses[:b],
-        num_iters=r.num_iters, converged=r.converged[:b],
-        history=r.history[:, :b])
+    if fit_path(cfg) == "sharded":
+        # the object axis over 'dp' (the reference's per-object process
+        # pool, SURVEY §2.11)
+        mesh = make_mesh(tp=1)
+        log.info("phase6: sharding the objects over dp=%d", mesh.size(0))
+        result = fit_poses_sharded(init, batch, cam, fit_cfg, mesh)
+    else:
+        # the object axis padded to a multiple of 4, as the JAX package pads
+        # it on one chip
+        batch_p, init_p, _ = pad_batch_to(batch, init, 4)
+        r = fit_poses(init_p, batch_p, cam, fit_cfg)
+        result = FitResult(
+            params=PoseParams(*(x[:b] for x in r.params)),
+            losses=r.losses[:b], num_iters=r.num_iters,
+            converged=r.converged[:b], history=r.history[:, :b])
     losses = result.losses.cpu().numpy()
     t_fit = time.perf_counter() - t_stage
     t_stage = time.perf_counter()

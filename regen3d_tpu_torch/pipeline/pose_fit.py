@@ -8,6 +8,8 @@ same stop rule. Losses and semantics follow the JAX package:
 
   loss = w_sil·(0.75·dice + 0.25·(BCE|focal)) + w_3d·point_mesh_face_distance
        + w_bbox·bbox_hinge
+
+:func:`fit_poses_sharded` splits the object axis over a mesh's 'dp' ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from regen3d_tpu_torch.camera import Camera
@@ -242,7 +245,13 @@ def fit_poses(init_params: PoseParams, batch: ObjectBatch, camera: Camera,
         return _fit(init_params, batch, camera, cfg)
 
 
-def _fit(init_params, batch, camera, cfg):
+def _any_active(flag: torch.Tensor) -> bool:
+    return bool(flag.any())
+
+
+def _fit(init_params, batch, camera, cfg, any_active=_any_active):
+    """The fit's loop; ``any_active`` reads whether any object still moves
+    (across every rank in the sharded fit)."""
     b = init_params.yaw.shape[0]
     dev = init_params.yaw.device
     bins = (compute_batch_bins(init_params, batch, camera, cfg)
@@ -262,7 +271,7 @@ def _fit(init_params, batch, camera, cfg):
     valid = batch.object_valid.bool()
 
     it = 0
-    while it < cfg.max_iterations and bool((active & valid).any()):
+    while it < cfg.max_iterations and any_active(active & valid):
         p = PoseParams(*(x.detach().requires_grad_() for x in params))
         total, _ = batch_loss(p, batch, camera, cfg, bins)
         grads = torch.autograd.grad(total, p, allow_unused=True)
@@ -322,6 +331,60 @@ def pad_batch_to(batch: ObjectBatch, params: PoseParams, multiple: int
         object_valid=pad0(batch.object_valid),
         bbox_lo=batch.bbox_lo, bbox_hi=batch.bbox_hi)
     return batch, PoseParams(*(pad0(x) for x in params)), b
+
+
+# the per-object leaves of an ObjectBatch (bbox_lo and bbox_hi are shared)
+_PER_OBJECT = tuple(f for f in ObjectBatch._fields
+                    if f not in ("bbox_lo", "bbox_hi"))
+
+
+def fit_poses_sharded(init_params: PoseParams, batch: ObjectBatch,
+                      camera: Camera, cfg: FitConfig, mesh) -> FitResult:
+    """:func:`fit_poses` with the OBJECT axis split over the mesh's 'dp'
+    axis (JAX's ``fit_poses_sharded``, the reference's per-object process
+    pool, scene_reconstruction/run.py:88-96): the batch pads to a multiple
+    of dp with :func:`pad_batch_to`, each dp rank fits its block of objects,
+    and the results are gathered on every rank and trimmed back to the
+    batch. The one collective inside the loop is the convergence test: the
+    loop runs while any object of any rank is active (a max all-reduce of
+    each rank's flag), so every rank stops at the same, global, number of
+    iterations, as the single program does in JAX; each object's fit
+    depends on no other object. At dp = 1 nothing is split or padded and
+    no collective runs: :func:`fit_poses` bit for bit. A
+    collective: every rank of the mesh calls it with the same inputs."""
+    i = mesh.mesh_dim_names.index("dp")
+    dp, r, group = mesh.size(i), mesh.get_local_rank(i), mesh.get_group(i)
+    batch, init_params, b = pad_batch_to(batch, init_params, dp)
+    n = batch.verts.shape[0] // dp
+    block = slice(r * n, (r + 1) * n)
+    local = batch._replace(**{f: getattr(batch, f)[block]
+                              for f in _PER_OBJECT})
+    local_init = PoseParams(*(x[block] for x in init_params))
+
+    def any_active(flag):
+        if dp == 1:
+            return _any_active(flag)
+        t = flag.any().to(torch.int32).reshape(1)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return bool(t)
+
+    with full_f32():
+        res = _fit(local_init, local, camera, cfg, any_active)
+
+    def gather(x, dim=0):
+        if dp == 1:
+            return x.narrow(dim, 0, b)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dp)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim).narrow(dim, 0, b)
+
+    return FitResult(
+        params=PoseParams(*(gather(x) for x in res.params)),
+        losses=gather(res.losses),
+        num_iters=res.num_iters,
+        converged=gather(res.converged.to(torch.uint8)).bool(),
+        history=gather(res.history, 1))
 
 
 def find_best_initial_yaw(

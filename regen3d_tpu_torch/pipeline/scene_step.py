@@ -4,6 +4,12 @@ regen3d_tpu/pipeline/scene_step.py).
 VGGT forward → depth unprojection → per-object static-size cloud crop (the
 phase-5 mask crop as a top-k selection) → batched pose fit → posed scene
 vertices, with no host round trip between the stages' tensors.
+
+Over a (dp, tp) mesh (``mesh``) the VGGT forward runs on the parameters
+``parallel/mesh.shard_params`` placed over 'tp' and the object axis of the
+fit is split over 'dp' (``fit_poses_sharded``), as the JAX package's step
+runs under a mesh (``__graft_entry__._dryrun_scene_step``); every rank
+passes the same inputs and gets the whole result.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from regen3d_tpu_torch.pipeline.pose_fit import (
     ObjectBatch,
     PoseParams,
     fit_poses,
+    fit_poses_sharded,
     pose_transform,
 )
 
@@ -69,8 +76,10 @@ def scene_step(
     fit_cfg: FitConfig,
     num_points: int = 1024,
     image_hw: Optional[Tuple[int, int]] = None,
+    mesh=None,
 ) -> SceneStepResult:
-    """One scene inference step (phases 4→6)."""
+    """One scene inference step (phases 4→6); over ``mesh``, the fit's
+    objects split over its 'dp' ranks."""
     s = images.shape[1]
     k = masks.shape[0]
     dev = images.device
@@ -122,7 +131,8 @@ def scene_step(
         bbox_lo=torch.tensor([-100.0, -100.0, 1e-3], device=dev),
         bbox_hi=torch.tensor([100.0, 100.0, 100.0], device=dev))
     init = PoseParams.zeros(k, device=dev)._replace(translation=med)
-    res = fit_poses(init, batch, cam, fit_cfg)
+    res = fit_poses(init, batch, cam, fit_cfg) if mesh is None else \
+        fit_poses_sharded(init, batch, cam, fit_cfg, mesh)
     with torch.no_grad():
         posed = pose_transform(res.params, batch, fit_cfg)
     return SceneStepResult(params=res.params, verts_world=posed,

@@ -155,15 +155,21 @@ def jax_cond_f32(self):
 
 def jax_steps(vg, params, batches, tx):
     """The JAX trainer's steps: its loss and gradient (``vg``, jitted) on
-    each batch, then its optax chain ``tx``; → (params, the first step's
-    loss and gradient)."""
+    each batch, then its optax chain ``tx``, jitted (one compile of the
+    update for the tree, where eager optax compiles each leaf's operations
+    one by one); → (params, the first step's loss and gradient)."""
     state = tx.init(params)
     first = None
+
+    @jax.jit
+    def update(grads, state, params):
+        upd, state = tx.update(grads, state, params)
+        return optax.apply_updates(params, upd), state
+
     for b in batches:
         loss, grads = vg(params, *b)
         first = first or (loss, grads)
-        upd, state = tx.update(grads, state, params)
-        params = optax.apply_updates(params, upd)
+        params, state = update(grads, state, params)
     return params, first
 
 

@@ -85,7 +85,10 @@ SLICE_MODULES = [
     "regen3d_tpu_torch.pipeline.interactive",
     "regen3d_tpu_torch.pipeline.editor_ui",
     "regen3d_tpu_torch.utils.profiling", "regen3d_tpu_torch.distill",
-    "regen3d_tpu_torch.parallel.batches",
+    "regen3d_tpu_torch.parallel.batches", "regen3d_tpu_torch.parallel",
+    "regen3d_tpu_torch.parallel.mesh", "regen3d_tpu_torch.parallel.tp",
+    "regen3d_tpu_torch.parallel.fleet", "regen3d_tpu_torch.parallel.dryrun",
+    "regen3d_tpu_torch.utils.synthgt",
 ]
 # imported only inside the functions that need them: the card's machine
 # has none of them
@@ -121,9 +124,14 @@ def test_weight_bridge_uses_every_leaf_once():
     from regen3d_tpu_torch.models.from_jax import load_from_jax, state_from_jax
     from regen3d_tpu_torch.models.vggt import VGGT, VGGTConfig
 
+    # the tree's shapes (no compile), leaves drawn from a numpy seed, as
+    # the phase-1 models' bridge test below draws them
     jc = dataclasses.replace(JConfig.tiny(), dtype=jnp.float32)
-    params = jax.device_get(jax.jit(JVGGT(jc).init)(
-        jax.random.PRNGKey(0), jnp.zeros((1, 2, 28, 28, 3))))
+    shapes = jax.eval_shape(JVGGT(jc).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 2, 28, 28, 3)))
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
     n_leaves = len(jax.tree_util.tree_leaves(params))
     state = state_from_jax(params)
     model = VGGT(dataclasses.replace(VGGTConfig.tiny(), dtype=torch.float32),

@@ -417,3 +417,47 @@ def test_render_size_rule_squeezes_the_mask(tmp_path):
     mask[:, 1200] = True
     cols = np.nonzero(resize_nearest(mask, (img_size, render_w))[0])[0]
     assert int(u_t) == 1269 and cols.tolist() == [1260]
+
+
+def test_fleet_over_two_ranks_fits_each_scene_on_its_rank(phase5, tmp_path):
+    """``run_fleet`` with phase 6 on two gloo ranks, one scene each (two
+    objects and one): under the fleet each rank fits its own scene's
+    objects (``shard_pose_fit`` is not set, so phase 6 alone would split
+    them over the group), and every fitted GLB equals a one-process
+    ``run_phases`` of that scene bit for bit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from regen3d_tpu_torch.parallel import dryrun
+    from regen3d_tpu_torch.parallel.fleet import SceneJob
+
+    _, troot, stems = phase5
+    over = {k: v for k, v in BASE.items() if k != "shard_pose_fit"}
+    over.update(max_iterations=2, early_stop_min_iterations=2)
+    roots = {}
+    for scene in ("two", "one"):
+        for side in ("fleet", "single"):
+            root = _copy(troot, tmp_path / f"{scene}_{side}")
+            if scene == "one":
+                os.remove(Artifacts(default_config(str(root / "output")))
+                          .asset_glb(stems["picture"]))
+            roots[scene, side] = root
+    jobs = [SceneJob(scene, str(roots[scene, "fleet"] / "input.png"),
+                     str(roots[scene, "fleet"] / "output"))
+            for scene in ("two", "one")]
+    with ThreadPoolExecutor(1) as pool:
+        done = pool.submit(dryrun.spawn_ranks, dryrun.fleet_rank, 2,
+                           (jobs, [6], over, "cpu"), 240)
+        for scene in ("two", "one"):
+            orchestrator.run_phases(default_config(
+                str(roots[scene, "single"] / "output"), **over), [6],
+                device="cpu")
+        done.result()
+    for scene, n in (("two", 2), ("one", 1)):
+        glbs = {side: sorted(os.listdir(roots[scene, side] / "output" / "glb"))
+                for side in ("fleet", "single")}
+        assert glbs["fleet"] == glbs["single"] and len(glbs["fleet"]) == n
+        for name in glbs["fleet"]:
+            stem = name[:-len(".glb")]
+            np.testing.assert_array_equal(
+                _vertices(roots[scene, "fleet"], stem),
+                _vertices(roots[scene, "single"], stem), err_msg=scene)
